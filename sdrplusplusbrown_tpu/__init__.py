@@ -1,6 +1,6 @@
-"""sdrplusplusbrown_tpu — a TPU-native SDR signal-processing framework.
+"""sdrplusplusbrown_tpu — a JAX SDR signal-processing framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of SDR++Brown
+A from-scratch JAX/XLA re-design of the capabilities of SDR++Brown
 (reference surveyed in SURVEY.md).  Instead of the reference's
 thread-per-block C++ pipeline (reference: core/src/dsp/block.h,
 core/src/dsp/stream.h), every DSP stage is a pure function over fixed-size

@@ -28,12 +28,15 @@ def main(argv=None):
     p.add_argument("--rigctl", type=int, default=0,
                    help="run a hamlib rigctl server on this port")
     p.add_argument("--platform", default=None,
-                   help="force a jax platform (cpu/tpu)")
+                   help="force a jax platform (cpu/gpu)")
     args = p.parse_args(argv)
 
+    import jax
     if args.platform:
-        import jax
         jax.config.update("jax_platforms", args.platform)
+
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from .app import SDRApp
     from .server.http_server import HttpDebugServer

@@ -4,7 +4,7 @@ reference: source_modules/file_source/src/main.cpp — reads the capture in
 SR/200-sample (≈5 ms) blocks on a worker thread, converts int16→float,
 optionally loops.  Here the source is a host-side iterator producing
 granularity-aligned numpy blocks for the jitted pipeline; real-time pacing
-(the reference sleeps to simulate the antenna) is optional since the TPU
+(the reference sleeps to simulate the antenna) is optional since the
 runs faster than real time.
 """
 

@@ -6,7 +6,7 @@ streams the raw MPEG frames to a TCP peer (the ADTS wrapper in the name
 is vestigial: writeADTSHeader is commented out upstream, :220).
 
 A Layer III encoder needs a psychoacoustic model + Huffman tables far
-outside this framework's scope, so the TPU build implements the
+outside this framework's scope, so this build implements the
 capability with a self-contained **MPEG-1 Layer I** encoder (ISO/IEC
 11172-3): 32-subband polyphase analysis, per-band scalefactors, a
 static bit allocation filling the CBR budget, and spec-layout frame

@@ -69,7 +69,7 @@ class SpyServerSource(_QueueSource):
 
     def __init__(self, host: str = "localhost", port: int = 5555,
                  srate_index: int = 0, iq_format: int = FORMAT_INT16,
-                 gain: int = 0, app_name: str = "SDR++TPU",
+                 gain: int = 0, app_name: str = "SDR++JAX",
                  devinfo_timeout: float = 3.0):
         import socket
         super().__init__(0.0)

@@ -19,7 +19,7 @@ reference: decoder_modules/atv_decoder/src/ —
   * visible rows 34..609 map to a 768×576 grayscale image from pixels
     155..922 (main.cpp:219-233).
 
-TPU split: AGC + amplitude demod run jitted at 14.77 MS/s; the line
+Device split: AGC + amplitude demod run jitted at 14.77 MS/s; the line
 loop is per-line host numpy (vectorized across the 945 pixels of each
 line — line rate is only 15 625 Hz).
 """

@@ -20,7 +20,7 @@ exactly one carrier).  Upstream decodes no further (no FIC/MSC Viterbi —
 the module renders the constellation); this port matches that scope and
 additionally exposes per-symbol carrier DQPSK dibits.
 
-TPU notes: correlation/FFT stages are vectorized (cumsum moving sums,
+Device notes: correlation/FFT stages are vectorized (cumsum moving sums,
 batched FFTs); symbol extraction indexes are data-dependent host logic
 at symbol rate (~400 Hz).
 """

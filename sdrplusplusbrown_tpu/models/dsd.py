@@ -10,10 +10,10 @@ against the known sync words; a hit latches the frame state (DATA vs
 VOICE, and the protocol family) that the burst processors then
 consume.
 
-TPU-native form: the sign reduction is a vector compare, and the
+Vectorized form: the sign reduction is a vector compare, and the
 24-symbol exact string match over EVERY position is a batched ±1
 correlation of the sign stream against all templates at once (one
-[P, 24] conv on the MXU/VPU, match ⟺ corr == 24) — the whole search is
+[P, 24] conv on the device, match ⟺ corr == 24) — the whole search is
 a single jitted pass per block instead of a per-symbol strcmp loop.
 Streaming calls carry the last 23 signs so syncs straddling block
 boundaries are found exactly once.

@@ -7,7 +7,7 @@ octets (flags + RPT2/RPT1/UR/MY callsigns + suffix + FCS) and verifies
 the checksum; the AMBE voice frames beyond the voice sync are the
 vendored-MBE boundary.
 
-TPU-native notes: the scrambler is GENERATED from its LFSR
+Vectorized notes: the scrambler is GENERATED from its LFSR
 (x^7 + x^4 + 1, seed 0b0000111 — derived by matching the published
 sequence, not copied as a table); the (2,1,3) rate-1/2 FEC (g1 = 111b,
 g2 = 101b) reuses the vectorized lax.scan Viterbi in ops/fec.py — the

@@ -1,10 +1,10 @@
-"""Native FT8 codec + batched TPU decoder.
+"""Native FT8 codec + batched JAX decoder.
 
 The reference ships FT8 decoding as the vendored MSHV core run in a
 separate executable (decoder_modules/ft8_decoder/src/ft8_decoder.h:150-212
 spawns ``sdrpp_ft8_mshv`` per 15 s window; the decode loop itself is
 decoder_modules/ft8_decoder/src/ft8_etc/decoderft8.cpp — scalar C++, one
-candidate at a time).  This module is an original TPU-native decoder:
+candidate at a time).  This module is an original vectorized decoder:
 
 - one half-symbol/half-tone oversampled energy spectrogram (batched rFFT),
 - the Costas sync metric evaluated for EVERY (time, frequency) cell at

@@ -16,7 +16,7 @@ format (the reference's dsp/noaa headers are absent from its own tree):
 0x083C 0x095A), words 103-622 TIP, words 750-10989 AVHRR video with the
 5 channels interleaved per pixel.
 
-TPU split: PM demod + clock recovery run jitted (PLL and M&M scans);
+Device split: PM demod + clock recovery run jitted (PLL and M&M scans);
 frame sync/demux is host numpy at word rate.
 """
 

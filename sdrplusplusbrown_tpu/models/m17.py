@@ -16,7 +16,7 @@ baked: interleaver π(x) = (45x + 92x²) mod 368, the 46-byte randomizer
 sequence, base-40 callsign alphabet, CRC-16/M17 (poly 0x5935 init 0xFFFF,
 check("123456789") = 0x772B).
 
-TPU split: the GFSK front end and Viterbi trellis run as jitted JAX
+Device split: the GFSK front end and Viterbi trellis run as jitted JAX
 (ops/demod_digital.py, ops/fec.py); the byte-rate framing/Golay/CRC layer
 is host numpy (a few kB/s — the same split the reference makes between
 its DSP threads and protocol callbacks).

@@ -8,7 +8,7 @@ OQPSK one-sample Q delay → M&M clock recovery (ωgain 1e-6, µgain 0.01).
 main.cpp:199-202 writes soft symbols as interleaved int8 re/im, scaled by
 84 and clamped to ±127.
 
-TPU redesign: RRC/AGC are batched tensor ops; the two sequential loops
+Vectorized redesign: RRC/AGC are batched tensor ops; the two sequential loops
 (Costas, M&M) are `lax.scan`s.  The whole demod is one jittable block.
 """
 

@@ -275,8 +275,7 @@ class Radio(Block):
             y, st["deemp"] = self.deemp.apply(None, state["deemp"], y)
         if not self.demod_stereo and not mono_out:
             # mono → stereo presentation copy; wide banks skip it
-            # (``mono_out``) — materializing the duplicate costs ~40
-            # HBM B/in-sample at C=128 (write + relayout copy)
+            # (``mono_out``) and let the sink duplicate host-side
             y = jnp.stack([y, y], axis=-2)
         if rds is not None:
             return (y, rds), st
@@ -326,20 +325,12 @@ def init_state_shared(self, C: int):
     return st
 
 
-def apply_shared(self, params, state, x, _force_fused=None,
-                 mono_out=False, spectrum=None):
-    """x: [T] SHARED wideband — complex64, or (xr, xi) float32 planes
-    (the host feed's natural SoA form: a c64 array costs an unfused
-    X64Split custom-call pass per real()/imag() on TPU) — → same
-    outputs as apply() on a C-broadcast copy, but the full-rate
+def apply_shared(self, params, state, x, mono_out=False, spectrum=None):
+    """x: [T] SHARED wideband — complex64, or (xr, xi) float32 planes —
+    → same outputs as apply() on a C-broadcast copy, but the full-rate
     mix-down is fused into the first halfband (ops/fused_frontend.py)
-    so the wideband is read once.
-    ``_force_fused=True`` runs the kernel path in interpret mode on CPU
-    (tests of the raw handoff).  ``spectrum``: a SpectrumPath whose
-    frames are computed INSIDE the front-end kernel when supported
-    (fused branch; the standalone frames kernel re-read the planes and
-    forced a relayout copy — ~12 B/in-sample at the WFM-8 config);
-    returns ((audio, spectra), state')."""
+    so the wideband is read once.  ``spectrum``: a SpectrumPath run on
+    the same block; then returns ((audio, spectra), state')."""
     T_in = (x[0] if isinstance(x, tuple) else x).shape[-1]
     if T_in % self.in_multiple:
         raise ValueError(
@@ -347,96 +338,21 @@ def apply_shared(self, params, state, x, _force_fused=None,
             f"be a multiple of in_multiple={self.in_multiple}")
     vs = self._build_vfo_shared()
     st = dict(state)
-    sp_dict = None
-    if spectrum is not None:
-        sp_dict = {"keep": spectrum.reshaper.keep,
-                   "interval": spectrum.reshaper.interval,
-                   "fft_size": spectrum.fft_size,
-                   "floor_db": spectrum.fft.floor_db,
-                   "window": spectrum.fft.window}
-
-    def _with_spec(ret_st):
-        """Attach spectra to a (ret, state) pair on non-fused paths."""
-        if spectrum is None:
-            return ret_st
-        ret, st2 = ret_st
-        spectra, _ = spectrum.apply(None, None, x)
-        return (ret, spectra), st2
-    # plane handoff: when the IF chain is empty and the demod can eat
-    # re/im planes (WFM discriminator), skip the recombine-to-complex
-    # HBM pass after the plane-protocol front end
     if self._if_chain_empty() and hasattr(self.demod, "apply_planes"):
-        from ..ops.fir import get_fir_backend
-        use_kernel = _force_fused if _force_fused is not None else (
-            get_fir_backend() in ("auto", "pallas")
-            and jax.default_backend() not in ("cpu",))
-        # raw handoff: the monolithic front-end kernel's untrimmed
-        # [2C, W] buffer feeds the demod kernels directly — the
-        # [C, m_if] plane slices (a full IF-rate HBM copy) only
-        # materialize on the fallback paths
-        if sp_dict is not None:
-            planes, spectra, st["vfo"] = vs.apply(
-                params["vfo"], state["vfo"], x, raw=use_kernel,
-                return_planes=not use_kernel,
-                _force_kernel=bool(_force_fused), spectrum=sp_dict)
-            if spectra is None:
-                spectra, _ = spectrum.apply(None, None, x)
-        else:
-            spectra = None
-            planes, st["vfo"] = vs.apply(params["vfo"], state["vfo"], x,
-                                         raw=use_kernel,
-                                         return_planes=not use_kernel,
-                                         _force_kernel=bool(_force_fused))
-        is_raw = use_kernel and isinstance(planes[1], int)
-        if is_raw:
-            C = planes[0].shape[0] // 2
-            m_if = planes[1]
-        else:
-            C = planes[0].shape[0] if planes[0].ndim == 2 else 0
-            m_if = planes[0].shape[-1]
-        pipe2 = (self._fm_audio_pipe(C, bool(_force_fused))
-                 if use_kernel and (is_raw or planes[0].ndim == 2)
-                 else None)
-        if pipe2 is not None:
-            # NFM audio tail (quad + audio FIR + AF resampler) as one
-            # kernel (ops/demod_kernel.py), same as the channelized path
-            from ..ops.demod_kernel import apply_chunked
-            if pipe2.C == C:
-                audio, st["demod"], ast = pipe2.apply(
-                    None, state["demod"],
-                    state.get("af_resamp") or {},
-                    planes[0] if is_raw else planes, m_if)
-            else:
-                iq_raw = (planes[0] if is_raw
-                          else jnp.concatenate(planes, axis=0))
-                audio, st["demod"], ast = apply_chunked(
-                    pipe2, None, state["demod"],
-                    state.get("af_resamp") or {}, iq_raw, m_if, C)
-            if self.af_resamp is not None:
-                st["af_resamp"] = ast
-            if mono_out:
-                return ((audio, spectra), st) if spectrum is not None \
-                    else (audio, st)
-            lr = jnp.stack([audio, audio], axis=-2)
-            return ((lr, spectra), st) if spectrum is not None \
-                else (lr, st)
-        if is_raw and not hasattr(self.demod, "accepts_raw_planes"):
-            buf = planes[0]
-            planes = (buf[:C, :m_if], buf[C:2 * C, :m_if])
-        force_kw = ({"_force_kernel": True}
-                    if _force_fused
-                    and hasattr(self.demod, "accepts_raw_planes")
-                    else {})
-        y, st["demod"] = self.demod.apply_planes(
-            None, state["demod"], planes, **force_kw)
-        ret = self._post_demod(state, st, y, mono_out=mono_out)
-        if spectrum is not None:
-            out, st3 = ret
-            return (out, spectra), st3
-        return ret
-    y, st["vfo"] = vs.apply(params["vfo"], state["vfo"], x)
-    return _with_spec(
-        self._post_vfo(params, state, st, y, mono_out=mono_out))
+        # plane handoff: the discriminator eats the IF's re/im planes,
+        # so the IF is never recombined into a complex array
+        planes, st["vfo"] = vs.apply(params["vfo"], state["vfo"], x,
+                                     return_planes=True)
+        y, st["demod"] = self.demod.apply_planes(None, state["demod"],
+                                                 planes)
+        out, st = self._post_demod(state, st, y, mono_out=mono_out)
+    else:
+        y, st["vfo"] = vs.apply(params["vfo"], state["vfo"], x)
+        out, st = self._post_vfo(params, state, st, y, mono_out=mono_out)
+    if spectrum is None:
+        return out, st
+    spectra, _ = spectrum.apply(None, None, x)
+    return (out, spectra), st
 
 
 def can_channelize(self) -> bool:
@@ -475,23 +391,12 @@ def init_state_channelized(self, C: int):
     return st
 
 
-def apply_channelized(self, params, state, x, _force_fused=None,
-                      mono_out=False, raw_audio=False):
-    """x: [T] SHARED wideband → per-channel audio via the 2×-oversampled
-    PFB front end (ChannelizedRxVFOBank) — O(C)-free at the full input
-    rate, the wide-bank/scanner path.  Signal-equivalent (not bit-near)
-    to apply(): different anti-alias filters.
-
-    On TPU the post-channelizer tail (gather/NCO/decim2/bandwidth FIR)
-    runs as ONE pallas kernel (ops/chan_frontend.py) with the squelch's
-    whole-block |y| mean accumulated in-kernel and the gate folded into
-    the demodulator's input pass — same outputs as the chained path
-    (squelch zeroes the IF before demod, reference squelch.h:55-69).
-
-    x may be the complex wideband [T] or its (xr, xi) float32 planes —
-    the cheapest ingestion format on TPU (the PFB kernel reads the
-    planes' natural row view directly; sources that deliver interleaved
-    or complex IQ pay a one-off split at ingestion)."""
+def apply_channelized(self, params, state, x, mono_out=False):
+    """x: [T] SHARED wideband (complex64 or (xr, xi) float32 planes) →
+    per-channel audio via the 2×-oversampled PFB front end
+    (ChannelizedRxVFOBank) — O(C)-free at the full input rate, the
+    wide-bank/scanner path.  Signal-equivalent (not bit-near) to
+    apply(): different anti-alias filters."""
     Tx = (x[0] if isinstance(x, tuple) else x).shape[-1]
     if Tx % self.in_multiple:
         raise ValueError(
@@ -499,110 +404,12 @@ def apply_channelized(self, params, state, x, _force_fused=None,
             f"be a multiple of in_multiple={self.in_multiple}")
     vb = self._build_vfo_channelized()
     st = dict(state)
-    use_fused = _force_fused
-    if use_fused is None:
-        from ..ops.fir import get_fir_backend
-        use_fused = (get_fir_backend() in ("auto", "pallas")
-                     and jax.default_backend() not in ("cpu",))
-    if use_fused and not self.nb_enabled and not self.fmif_enabled:
-        plane_demod = hasattr(self.demod, "apply_planes")
-        C = int(params["vfo"]["bin"].shape[0])
-        pipe2 = (self._fm_audio_pipe(C, bool(_force_fused))
-                 if plane_demod else None)
-        res = vb.apply_fused(params["vfo"], state["vfo"], x,
-                             return_planes=plane_demod,
-                             interpret=bool(_force_fused),
-                             raw=pipe2 is not None)
-        if res is not None:
-            y, sq_sums, st["vfo"] = res
-            n_if = (y[1] if pipe2 is not None
-                    else (y[0] if plane_demod else y).shape[-1])
-            gate = None
-            if self.squelch_enabled:
-                mean_amp = sq_sums / jnp.float32(n_if)
-                level = (params.get("squelch") or
-                         {"level": jnp.float32(
-                             self.squelch.default_level)})["level"]
-                power_db = 10.0 * jnp.log10(jnp.maximum(mean_amp, 1e-20))
-                gate = (power_db >= level).astype(jnp.float32)[:, None]
-            if pipe2 is not None:
-                # whole audio tail (gate → quad → audio FIR → AF
-                # resampler) as ONE kernel (ops/demod_kernel.py) fed the
-                # raw stacked IF buffer — no concat/trim pass.  Banks
-                # wider than the pipe (scoped-VMEM cap ~128 ch/launch)
-                # run in channel chunks.
-                from ..ops.demod_kernel import apply_chunked
-                iq_raw, m_if = y
-                gvec = gate[:, 0] if gate is not None else None
-                if pipe2.C == C:
-                    audio, st["demod"], ast = pipe2.apply(
-                        gvec, state["demod"],
-                        state.get("af_resamp") or {}, iq_raw, m_if,
-                        raw_audio=raw_audio)
-                else:
-                    audio, st["demod"], ast = apply_chunked(
-                        pipe2, gvec, state["demod"],
-                        state.get("af_resamp") or {}, iq_raw, m_if, C,
-                        raw_audio=raw_audio)
-                if self.af_resamp is not None:
-                    st["af_resamp"] = ast
-                if raw_audio:
-                    # (audio_pad [C, n·adv_aud] handoff-dtype, m_aud) —
-                    # the sink/pump trims host-side, mirroring the raw
-                    # IF contract
-                    return audio, st
-                if mono_out:
-                    return audio, st
-                return jnp.stack([audio, audio], axis=-2), st
-            if plane_demod:
-                xr, xi = y
-                if gate is not None:
-                    xr = xr * gate
-                    xi = xi * gate
-                y, st["demod"] = self.demod.apply_planes(
-                    None, state["demod"], (xr, xi))
-            else:
-                if gate is not None:
-                    y = y * gate
-                y, st["demod"] = self.demod.apply(None, state["demod"], y)
-            return self._post_demod(state, st, y, mono_out=mono_out)
     if isinstance(x, tuple):
         x = jax.lax.complex(*x)
     y, st["vfo"] = vb.apply(params["vfo"], state["vfo"], x)
     return self._post_vfo(params, state, st, y, mono_out=mono_out)
 
 
-def _fm_audio_pipe(self, C: int, interpret: bool = False):
-    """Lazily-built fused demod+audio kernel (ops/demod_kernel.py);
-    None when this demod config can't use it."""
-    cache = getattr(self, "_fm_audio_cache", None)
-    if cache is None:
-        cache = self._fm_audio_cache = {}
-    key = (C, interpret)
-    if key not in cache:
-        from ..ops.demod import FMDemod
-        from ..ops.demod_kernel import build_fm_audio_pipeline
-        if (isinstance(self.demod, FMDemod) and self.deemp is None
-                and not self.demod_stereo):
-            p = build_fm_audio_pipeline(
-                self.demod, self.af_resamp, C, interpret=interpret)
-            if p is None:
-                # wide banks: largest chunk size that fits the kernel's
-                # scoped-VMEM budget and divides C
-                for ck in (128, 64, 32, 16, 8, 4):
-                    if C % ck == 0 and ck < C:
-                        p = build_fm_audio_pipeline(
-                            self.demod, self.af_resamp, ck,
-                            interpret=interpret)
-                        if p is not None:
-                            break
-            cache[key] = p
-        else:
-            cache[key] = None
-    return cache[key]
-
-
-Radio._fm_audio_pipe = _fm_audio_pipe
 Radio._build_vfo_shared = _build_vfo_shared
 Radio.make_params_shared = make_params_shared
 Radio.init_state_shared = init_state_shared

@@ -32,9 +32,10 @@ class VFOSpec:
         self.bandwidth = bandwidth
 
 
-# Measured TPU roofline crossover (scripts/channelized_roofline.py, NFM
-# @2.4 MS/s): fused-shared wins at C=8 (1345 vs 955 MS/s bound), the PFB
-# channelized path wins from C=32 on (721 vs 347; 12x at C=128).
+# Group width from which "auto" takes the PFB channelized front end: the
+# fused shared front end does O(C) work at the full input rate, the PFB
+# path O(taps) per input sample.  The crossover has not been measured on
+# the GPU yet.
 CHANNELIZE_MIN_C = 16
 
 
@@ -76,11 +77,9 @@ class RadioBank:
             if self.radios else 1
 
     def _padded_c(self, d: int) -> int:
-        """Groups of 1-3 channels pad to 4: the monolithic front-end
-        kernel needs 2C rows to tile the 8-sublane granule, and the
-        padded channels ride along for free (the kernels are HBM-bound
-        and already padded to 8 rows internally).  Outputs are sliced
-        back to the real count in apply()."""
+        """Groups of 1-3 channels pad to 4; whether the padding pays on
+        the GPU is not measured yet.  Outputs are sliced back to the
+        real count in apply()."""
         C = len(self.groups[d])
         return 4 if (not self.channelized[d] and C < 4) else C
 
@@ -113,10 +112,8 @@ class RadioBank:
 
         ``mono_out``: skip the presentational stereo duplication
         ([C_d, T_out_d] instead) — the sink duplicates host-side, the
-        same contract as the channelized scanner path; on-device the
-        L/R stack costs ~4 full audio-rate HBM passes per mode group
-        (pad ×2 + fusion + relayout copy, measured on the multimode-8
-        bench)."""
+        same contract as the channelized scanner path, and it saves the
+        device the L/R stack."""
         outs = {}
         new_state = {}
         for d, radio in self.radios.items():

@@ -6,8 +6,8 @@ RationalResampler(inSR→outSR) → optional low-pass when bandwidth != outSR
 
 Batched: one RxVFO instance serves ``[C, T]`` blocks of C channels; the
 offset is a runtime param (per-channel array) so hundreds of differently
-tuned VFOs share one compiled kernel — the TPU answer to the reference's
-one-thread-per-VFO fan-out (reference: core/src/signal_path/
+tuned VFOs share one compiled program — the batched answer to the
+reference's one-thread-per-VFO fan-out (reference: core/src/signal_path/
 iq_frontend.cpp:159-179).
 """
 
@@ -73,8 +73,8 @@ class ChannelizedRxVFOBank(Block):
     channelizer — the wide-C answer (scanners, monitoring banks).
 
     The fused front end (SharedRxVFOBank) still does O(C) work at the
-    full input rate; past the pallas/conv crossover (~64 channels) the
-    front end dominates the whole chain.  Here the band is split ONCE
+    full input rate, so for wide banks the front end dominates the
+    whole chain.  Here the band is split ONCE
     (O(taps) per wideband sample, independent of C); each channel then
     costs only a bin gather + residual NCO + 2:1 decimation at the
     decimated rate:
@@ -139,17 +139,8 @@ class ChannelizedRxVFOBank(Block):
         k = np.round(f / self.out_samplerate)
         delta = f - k * self.out_samplerate
         idx = np.mod(k.astype(np.int64), self.M).astype(np.int32)
-        # exact mod-2π spans for the fused kernel's base-phase table
-        # (ops/chan_frontend.py); harmless extras on the chained path
-        from ..ops.xlator import _TWO_PI
-        from ..ops.chan_frontend import BS as _CBS, SPAN as _CSPAN
-        omega = -delta * (_TWO_PI / (2.0 * self.out_samplerate))
         return {"bin": jnp.asarray(idx),
-                "xl": nco_params(-delta, 2.0 * self.out_samplerate),
-                "xl_bs": jnp.asarray(np.mod(omega * _CBS, _TWO_PI),
-                                     jnp.float32),
-                "xl_sup": jnp.asarray(np.mod(omega * _CSPAN, _TWO_PI),
-                                      jnp.float32)}
+                "xl": nco_params(-delta, 2.0 * self.out_samplerate)}
 
     def init_state(self, C: int):
         st = {"chz": self.chz.init_state(),
@@ -169,82 +160,6 @@ class ChannelizedRxVFOBank(Block):
         if self.filter_needed:
             y, st["fir"] = self.fir.apply(None, state["fir"], y)
         return y, st
-
-    def _chan_pipe(self, C: int, interpret: bool = False):
-        """Lazily-built fused post-channelizer kernel
-        (ops/chan_frontend.py); None when the geometry is unsupported."""
-        cache = getattr(self, "_chan_cache", None)
-        if cache is None:
-            cache = self._chan_cache = {}
-        key = (C, interpret)
-        if key not in cache:
-            from ..ops.chan_frontend import build_chan_pipeline
-            cache[key] = build_chan_pipeline(self, C, interpret=interpret)
-        return cache[key]
-
-    def apply_fused(self, params, state, x, return_planes: bool = False,
-                    interpret: bool = False, raw: bool = False):
-        """x: [T] wideband → ((y | (yr, yi)), sq_sums [C], state') via
-        the one-kernel post-channelizer path, or None when unsupported
-        (caller falls back to apply()).  sq_sums = Σ|y| per channel
-        over the block — the squelch's whole-block mean, computed for
-        free inside the kernel."""
-        C = int(params["bin"].shape[0])
-        pipe = self._chan_pipe(C, interpret=interpret)
-        if pipe is None or "xl_sup" not in params:
-            return None
-        st = dict(state)
-        Tx = (x[0] if isinstance(x, tuple) else x).shape[-1]
-        Tb = 2 * Tx // self.M
-        pad_to = pipe._plan(Tb)["Tb_pad"]
-        fused = self._chan_fused(C, interpret=interpret)
-        if fused is not None and fused.ok_for(Tx, pad_to):
-            # PFB + post-channelizer in ONE kernel — the bins plane
-            # stack never leaves VMEM (ops/chan_frontend.py)
-            return fused.apply(params, state, x,
-                               return_planes=return_planes, raw=raw)
-        pz = self._pallas_chz(interpret)
-        if pz is not None and pz.ok_for(Tx, pad_to):
-            # whole channelizer as ONE kernel emitting the exact bins
-            # layout the post-channelizer kernel eats (the padded tail
-            # holds garbage frames — chan_frontend masks/trims them).
-            # V2 eats (xr, xi) planes directly — the cheapest ingestion
-            # format (free [T/128, 128] row bitcast, no relayout pass)
-            bins, st["chz"] = pz.apply(state["chz"], x, pad_to)
-            y, sq_sums, st2 = pipe.apply(params, st, bins,
-                                         return_planes=return_planes,
-                                         Tb=Tb, raw=raw)
-            return y, sq_sums, st2
-        if isinstance(x, tuple):
-            x = jax.lax.complex(*x)
-        # tuple planes + in-pipe concat/pad measured CHEAPER than the
-        # single stacked+padded emit (XLA fuses the concat better than
-        # the [2,M,k,2] stack-reshape): 694.6 vs 770 B/in-sample whole
-        # chain at C=128
-        planes, st["chz"] = self.chz.apply_planes(state["chz"], x)
-        y, sq_sums, st2 = pipe.apply(params, st, planes,
-                                     return_planes=return_planes, raw=raw)
-        return y, sq_sums, st2
-
-    def _pallas_chz(self, interpret: bool = False):
-        cache = getattr(self, "_pchz_cache", None)
-        if cache is None:
-            cache = self._pchz_cache = {}
-        if interpret not in cache:
-            from ..ops.pallas_channelizer import build_pallas_channelizer
-            cache[interpret] = build_pallas_channelizer(
-                self.chz, interpret=interpret)
-        return cache[interpret]
-
-    def _chan_fused(self, C: int, interpret: bool = False):
-        cache = getattr(self, "_fused_cache", None)
-        if cache is None:
-            cache = self._fused_cache = {}
-        key = (C, interpret)
-        if key not in cache:
-            from ..ops.chan_frontend import build_chan_fused
-            cache[key] = build_chan_fused(self, C, interpret=interpret)
-        return cache[key]
 
 
 class SharedRxVFOBank(Block):
@@ -300,86 +215,11 @@ class SharedRxVFOBank(Block):
             st["fir"] = self.base.fir.init_state((C,))
         return st
 
-    def _plane_pipe(self, C: int):
-        """Lazily-built plane-protocol pipeline (ops/plane_frontend.py);
-        None when this bank/shape can't use it."""
-        cache = getattr(self, "_plane_cache", None)
-        if cache is None:
-            cache = self._plane_cache = {}
-        if C not in cache:
-            from ..ops.plane_frontend import build_plane_pipeline
-            cache[C] = build_plane_pipeline(self, C)
-        return cache[C]
-
-    def _mono_pipe(self, C: int):
-        """Lazily-built monolithic front end (ops/mono_frontend.py) —
-        the whole decimation chain in ONE pallas kernel; None when the
-        chain shape can't use it (falls back to the plane pipeline)."""
-        cache = getattr(self, "_mono_cache", None)
-        if cache is None:
-            cache = self._mono_cache = {}
-        if C not in cache:
-            from ..ops.mono_frontend import build_mono_pipeline
-            cache[C] = build_mono_pipeline(self, C)
-        return cache[C]
-
-    def apply(self, params, state, x, return_planes: bool = False,
-              raw: bool = False, _force_kernel: bool = False,
-              spectrum=None):
-        """x: [T] shared wideband → ([C, T_out], state').  With
-        ``return_planes``: (([C,T_out] re, im) float32, state') — on the
-        plane-protocol path these are slices of the last kernel output
-        (no recombine pass); elsewhere near-free real/imag views.  With
-        ``raw`` (monolithic kernel only): (([2C, W] stacked planes,
-        m_valid int), state') — no slice pass; falls back to
-        ``return_planes`` form when the mono kernel is unavailable.
-        With ``spectrum`` (a frame-params dict): the FUSED-spectrum
-        3-tuple (ret, spectra_or_None, state') — spectra is None when
-        the mono kernel didn't run (caller computes it separately).
-        ``_force_kernel`` runs the mono kernel in interpret mode on CPU
-        (tests of the raw handoff)."""
-        if self.fused is not None:
-            from ..ops.fir import get_fir_backend
-            import jax as _jax
-            C = params["fused"]["omega"].shape[0]
-            if ((_force_kernel
-                 or (get_fir_backend() in ("auto", "pallas")
-                     and _jax.default_backend() not in ("cpu",)))
-                    and "omega_dec_sup" in params["fused"]):
-                pipe = self._mono_pipe(C)
-                if pipe is not None:
-                    if _force_kernel:
-                        pipe.interpret = True
-                    if spectrum is not None:
-                        T_in = (x[0] if isinstance(x, tuple)
-                                else x).shape[-1]
-                        if pipe.spectrum_ok(T_in, spectrum["keep"],
-                                            spectrum["interval"],
-                                            spectrum["fft_size"]):
-                            (ret, spectra), st2 = pipe.apply(
-                                params["fused"], state, x,
-                                return_planes=return_planes, raw=raw,
-                                spectrum=spectrum)
-                            return ret, spectra, st2
-                        ret, st2 = pipe.apply(
-                            params["fused"], state, x,
-                            return_planes=return_planes, raw=raw)
-                        return ret, None, st2
-                    return pipe.apply(params["fused"], state, x,
-                                      return_planes=return_planes,
-                                      raw=raw)
-                pipe = self._plane_pipe(C)
-                if pipe is not None:
-                    if _force_kernel:
-                        pipe.interpret = True
-                    if isinstance(x, tuple):
-                        x = jax.lax.complex(*x)
-                    r2 = pipe.apply(params["fused"], state, x,
-                                    return_planes=return_planes
-                                    or raw)
-                    return (r2[0], None, r2[1]) if spectrum is not None \
-                        else r2
-        if isinstance(x, tuple):          # fallbacks eat complex
+    def apply(self, params, state, x, return_planes: bool = False):
+        """x: [T] shared wideband (complex64, or (xr, xi) float32
+        planes) → ([C, T_out], state').  With ``return_planes``:
+        ((re, im) float32 [C, T_out] planes, state')."""
+        if isinstance(x, tuple):
             x = jax.lax.complex(*x)
         st = dict(state)
         if self.fused is None:
@@ -399,10 +239,6 @@ class SharedRxVFOBank(Block):
             y, st[n] = b.apply(None, state[n], y)
         if self.filter_needed:
             y, st["fir"] = self.base.fir.apply(None, state["fir"], y)
-        if return_planes or raw:
-            ret = ((jnp.real(y), jnp.imag(y)), st)
-        else:
-            ret = (y, st)
-        if spectrum is not None:
-            return ret[0], None, ret[1]
-        return ret
+        if return_planes:
+            return (jnp.real(y), jnp.imag(y)), st
+        return y, st

@@ -1,7 +1,7 @@
 """TETRA downlink burst + lower-MAC decode (BSCH / AACH).
 
 reference: decoder_modules/ch_tetra_demodulator (osmo-tetra derived) —
-the TPU build's π/4-DQPSK front end (ops/demod_digital.py) recovers the
+this build's π/4-DQPSK front end (ops/demod_digital.py) recovers the
 18 ksym/s dibit stream; this module carries the decode one level
 deeper: burst synchronization on the ETSI training sequences, then the
 BSCH chain (descramble → block de-interleave → RCPC de-puncture →

@@ -12,7 +12,7 @@ and decoder_modules/vor_receiver/src/vor_decoder.cpp:32-49 integrates the
 1 kHz phase stream over `integrationTime` windows: bearing = −mean (wrapped
 to [0, 2π)), quality = max(1 − stddev/(2π/√12), 0).
 
-TPU redesign: every per-sample VOLK loop becomes a batched tensor op; the
+Vectorized redesign: every per-sample VOLK loop becomes a batched tensor op; the
 whole receiver is one jittable `(params, state, x) → (phase, state')`
 block, and integration is a reshape+moments over static windows.  The
 reference's baked 2011-tap subcarrier filter (vor_fm_filter.h:4) is

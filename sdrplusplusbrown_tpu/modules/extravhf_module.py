@@ -5,7 +5,7 @@ reference: decoder_modules/ch_extravhf_decoder — its vendored DSD
 stack demodulates the 12.5 kHz channel (dsd_demod.cpp's dmrFilt +
 slicer), runs ``findFrameSync`` over the dibit stream
 (dsd_demod.cpp:136) and latches the frame state the burst processors
-consume.  The TPU analog channels the wideband through an RxVFO, runs
+consume.  The JAX analog channels the wideband through an RxVFO, runs
 the jitted 4FSK demod (ops/demod_digital.py FourFSKDemod) and the
 batched sync correlation (models/dsd.py DSDFrameSync); the vendored
 AMBE voice payload stack stays out of scope (README boundary note) —

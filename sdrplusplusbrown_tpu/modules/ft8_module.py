@@ -6,7 +6,7 @@ isolated decoder process (the vendored MSHV core runs as the separate
 ``sdrpp_ft8_mshv`` executable via the fork server, ft8_decoder.h:150-212).
 This module provides the full runtime — window alignment,
 pool/subprocess isolation, decode collection — with the decoder
-pluggable: by default the built-in TPU-native FT8 decoder
+pluggable: by default the built-in vectorized FT8 decoder
 (models/ft8.py, batched candidate search + LDPC in one jitted call), or
 an external command (the MSHV contract: float32 PCM on stdin, decode
 lines on stdout) for drop-in use of the reference executable.

@@ -2,7 +2,7 @@
 BSCH/AACH lower-MAC decode.
 
 reference: decoder_modules/ch_tetra_demodulator (osmo-tetra derived) —
-the TPU analog channels the wideband baseband through an RxVFO, runs
+the JAX analog channels the wideband baseband through an RxVFO, runs
 the jitted π/4-DQPSK front end (ops/demod_digital.py) and the
 lower-MAC burst decoder (models/tetra.py).  Status surfaces the cell
 identity (colour code, MCC/MNC), TDMA time and burst/CRC counters over

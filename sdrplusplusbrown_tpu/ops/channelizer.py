@@ -5,8 +5,8 @@ channels → FFT spectra".  The reference achieves multi-channel receive by
 running N independent RxVFO chains (xlate → resample each,
 reference: core/src/dsp/channel/rx_vfo.h); for a regular channel grid the
 PFB computes all M channels for the cost of ~one filter: polyphase-
-decompose the input, one batched branch FIR (an MXU matmul), and an FFT
-across the branch axis.
+decompose the input, one batched branch FIR, and an FFT across the
+branch axis.
 
     x_p[k] = x[kM + p]                      (polyphase decompose)
     v_p    = h_p ⊛ x_p ,  h_p[j] = h[jM+p]  (branch FIR, batched over p)
@@ -70,37 +70,6 @@ class PolyphaseChannelizer(Block):
         new_state = ext[..., ext.shape[-1] - (self.tpp - 1):]
         y = jnp.fft.fft(v, axis=-2)
         return y, new_state
-
-    def _pallas(self, interpret: bool = False):
-        cache = getattr(self, "_pz_cache", None)
-        if cache is None:
-            cache = self._pz_cache = {}
-        if interpret not in cache:
-            from .pallas_channelizer import build_pallas_poly_channelizer
-            cache[interpret] = build_pallas_poly_channelizer(
-                self, interpret=interpret)
-        return cache[interpret]
-
-    def apply_planes(self, state, x, width_out: int | None = None,
-                     out_dtype=None, interpret: bool = False):
-        """Whole-channelizer pallas kernel emitting the [2M, W] re|im
-        plane stack (ops/pallas_channelizer.py:PallasPolyChannelizer):
-        x is the complex wideband [T] or its (xr, xi) f32 planes; the
-        padded tail beyond T/M frames is garbage for the caller to
-        trim.  Returns (bins, state') — state dict interchanges exactly
-        with apply() — or None when the geometry/length can't use the
-        kernel (callers fall back to apply())."""
-        pz = self._pallas(interpret)
-        if pz is None:
-            return None
-        T = (x[0] if isinstance(x, tuple) else x).shape[-1]
-        k = T // self.M
-        W = width_out if width_out is not None \
-            else -(-k // pz.NF) * pz.NF
-        if not pz.ok_for(T, W):
-            return None
-        bins, st = pz.apply(state, x, W, out_dtype=out_dtype)
-        return bins, st
 
 
 class OversampledChannelizer(Block):
@@ -206,93 +175,6 @@ class OversampledChannelizer(Block):
         return y, {"tail_a": tail_a, "tail_b": tail_b,
                    "delay": x[..., T - half:]}
 
-    def _dft_mats(self):
-        """DFT-as-matmul matrices, the odd-pass (−1)^m twiddle folded in.
-
-        FFT(roll(v, M/2))_m = (−1)^m·FFT(v)_m, so the delayed pass needs
-        no branch roll — just sign-flipped rows.  Kept as separate
-        cos/sin f32 matrices so the whole channelizer works on re/im
-        planes without ever materializing complex64 (M ≤ 64 → a [M, M]
-        matmul per frame block is MXU noise next to the HBM traffic).
-        """
-        mats = getattr(self, "_dft_cache", None)
-        if mats is None:
-            M = self.M
-            ang = 2.0 * np.pi * np.outer(np.arange(M), np.arange(M)) / M
-            cosm = np.cos(ang)
-            sinm = np.sin(ang)
-            sgn = np.where(np.arange(M) % 2 == 0, 1.0, -1.0)[:, None]
-            # cache NUMPY, convert per use: caching jnp arrays created
-            # inside a trace leaks tracers across jit boundaries
-            mats = self._dft_cache = tuple(
-                np.asarray(m, np.float32)
-                for m in (cosm, sinm, cosm * sgn, sinm * sgn))
-        return tuple(jnp.asarray(m) for m in mats)
-
-    def _cs_pass_planes(self, tail, x):
-        """_cs_pass emitting separate (re, im) float32 planes."""
-        T = x.shape[-1]
-        k = T // self.M
-        xp = jnp.moveaxis(x.reshape(x.shape[:-1] + (k, self.M)), -1, -2)
-        tail = tail.astype(x.dtype) if tail.dtype != x.dtype else tail
-        ext = jnp.concatenate([tail, xp], axis=-1)
-        b = jnp.asarray(self.branches, jnp.float32)
-        tpp = self.tpp
-        er = jnp.real(ext).astype(jnp.float32)
-        ei = jnp.imag(ext).astype(jnp.float32)
-        bb = b.reshape((1,) * (ext.ndim - 2) + b.shape)
-        vr = jnp.zeros(ext.shape[:-1] + (k,), jnp.float32)
-        vi = jnp.zeros_like(vr)
-        for i in range(tpp):
-            g = bb[..., i:i + 1]
-            vr = vr + _sl(er, i, k) * g
-            vi = vi + _sl(ei, i, k) * g
-        return vr, vi, ext[..., ext.shape[-1] - (tpp - 1):]
-
-    def apply_planes(self, state, x, pad_to: int | None = None):
-        """x [..., T] → ((yr, yi) [..., M, 2T/M] float32, state') — same
-        bins as apply() (DFT computed as a cos/sin matmul instead of
-        jnp.fft, ~1e-6 relative) with the complex64 output never
-        materialized; the fused post-channelizer kernel
-        (ops/chan_frontend.py) eats these planes directly.
-
-        With ``pad_to``: returns a SINGLE [..., 2M, pad_to] array (re
-        rows stacked over im rows, zero-padded columns) — the exact
-        kernel input layout, so the interleave, the re/im stack and the
-        padding all land in one fused write instead of three passes."""
-        T = x.shape[-1]
-        assert T % self.M == 0, (T, self.M)
-        half = self.M // 2
-        var, vai, tail_a = self._cs_pass_planes(state["tail_a"], x)
-        xd = jnp.concatenate(
-            [state["delay"].astype(x.dtype), x[..., :T - half]], axis=-1)
-        vbr, vbi, tail_b = self._cs_pass_planes(state["tail_b"], xd)
-        cosm, sinm, cosb, sinb = self._dft_mats()
-        # (vr+j·vi)·e^{−jθ} summed: re = C·vr + S·vi, im = C·vi − S·vr
-        yar = cosm @ var + sinm @ vai
-        yai = cosm @ vai - sinm @ var
-        ybr = cosb @ vbr + sinb @ vbi
-        ybi = cosb @ vbi - sinb @ vbr
-        new_state = {"tail_a": tail_a, "tail_b": tail_b,
-                     "delay": x[..., T - half:]}
-        # odd (delayed) frames sit half a hop EARLIER: interleave [B, A]
-        k = yar.shape[-1]
-        lead = yar.shape[:-2]
-        if pad_to is None:
-            yr = jnp.stack([ybr, yar], axis=-1).reshape(
-                lead + (self.M, 2 * k))
-            yi = jnp.stack([ybi, yai], axis=-1).reshape(
-                lead + (self.M, 2 * k))
-            return (yr, yi), new_state
-        assert pad_to >= 2 * k
-        # [..., 2(re/im), M, k, 2(B/A)] → [..., 2M, 2k]: re rows on top
-        bins = jnp.stack([jnp.stack([ybr, yar], axis=-1),
-                          jnp.stack([ybi, yai], axis=-1)],
-                         axis=-4).reshape(lead + (2 * self.M, 2 * k))
-        bins = jnp.pad(bins, ((0, 0),) * (bins.ndim - 1)
-                       + ((0, pad_to - 2 * k),))
-        return bins, new_state
-
 
 def _branch_fir(ext: jnp.ndarray, branches: jnp.ndarray) -> jnp.ndarray:
     """Per-branch real-tap FIR on complex data.
@@ -300,11 +182,9 @@ def _branch_fir(ext: jnp.ndarray, branches: jnp.ndarray) -> jnp.ndarray:
     ext: [..., M, k + tpp - 1] complex; branches: [M, tpp] float32.
     Returns [..., M, k].
 
-    Lowering note: per-branch taps are a grouped conv with M groups of
-    one channel each — the pathological case for XLA's TPU conv (each
-    group padded to full lanes; measured 169 B/in-sample at M=48 where
-    the streams are ~32).  With tpp small (≤ a few dozen) the
-    tap-shifted sum below fuses into one pass over ``ext`` instead.
+    Lowering note: per-branch taps would be a grouped conv with M groups
+    of one channel each.  With tpp small (≤ a few dozen) the tap-shifted
+    sum below fuses into one elementwise pass over ``ext`` instead.
     """
     M, tpp = branches.shape
     k = ext.shape[-1] - (tpp - 1)

@@ -6,9 +6,9 @@ detect/compare threshold) and dcs.h (slice the subaudible band at
 134.366 bps, match the repeating 23-bit Golay(23,12) words of the
 standard code set).
 
-TPU-native form: the Goertzel bank IS a matmul — one [T, 2F] sin/cos
-projection of each audio block computed in a single jitted op (the MXU
-eats all 50 tones at once; a per-tone IIR loop would serialize).  The
+Vectorized form: the Goertzel bank IS a matmul — one [T, 2F] sin/cos
+projection of each audio block computed in a single jitted op (the
+matmul eats all 50 tones at once; a per-tone IIR loop would serialize).  The
 DCS path low-passes the discriminator audio, decimates to an integer
 multiple of the bit rate, and bit-slices on the host (134 bps is
 control-plane scale); code identification is a cyclic correlation

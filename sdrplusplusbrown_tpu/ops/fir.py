@@ -1,11 +1,11 @@
 """Overlap-save block FIR filtering (and decimating FIR).
 
-TPU-native replacement for the reference's per-sample VOLK dot-product FIRs
+Vectorized replacement for the reference's per-sample VOLK dot-product FIRs
 (reference: core/src/dsp/filter/fir.h:64-92, filter/decimating_fir.h:45-68).
 The reference keeps ``taps-1`` history samples at the head of a ring buffer
 and runs one SIMD dot product per output sample; we keep the same history as
-explicit carried state and compute the whole block as a single strided
-correlation lowered by XLA onto the MXU:
+explicit carried state and compute the whole block as one strided
+correlation:
 
     y[..., i] = sum_k ext[..., i*decim + k] * taps[k]
     ext       = concat(state, x)          # state = last taps-1 inputs
@@ -14,14 +14,24 @@ which matches the reference's indexing exactly (out[i] = dot(&buffer[i*decim],
 taps) with buffer[0:taps-1] = history), so impulse responses, group delay and
 fractional alignment are bit-compatible in exact arithmetic.
 
-Complex data / complex taps are handled by expressing complex multiply as a
-2x2 real mixing matrix in the conv feature dimension (TPU convs are real).
+Three lowerings of the same correlation, chosen by ``set_fir_backend``:
+
+* ``conv``     — ``lax.conv_general_dilated``; complex data and taps become
+  a 2x2 real mixing matrix in the conv feature dimension.
+* ``toeplitz`` — a banded-Toeplitz matmul: windows of ``tile*stride+K-1``
+  inputs times a [tile*stride+K-1, tile] tap band.
+* ``fft``      — frequency-domain overlap-save over the whole block (one
+  FFT of the block, one of the taps, one inverse), decimated after.
+
+``auto`` (the default) picks ``toeplitz`` on a GPU and ``conv`` elsewhere.
+On the H100 the banded matmul beat cuDNN's one- and two-channel
+convolutions in every benchmark cell (PERF.md), and the CPU keeps the
+conv lowering the test suite's numerics were set on.
 """
 
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -34,30 +44,15 @@ _DN = jax.lax.ConvDimensionNumbers(
     rhs_spec=(0, 1, 2),   # O I W
     out_spec=(0, 1, 2))   # N C W
 
-#: FIR lowering for stride-1 real-tap filtering: "conv" uses
-#: conv_general_dilated (1-2 feature channels — XLA pads them onto the
-#: 128-wide MXU), "toeplitz" lowers to a dense [rows, tile+K-1] ×
-#: [tile+K-1, tile] banded-matmul that fills the MXU, "pallas" uses the
-#: hand kernel in ops/pallas_fir.py.  "auto" (default) picks by shape
-#: from the recorded TPU cost_analysis study (docs/fir_backend.md):
-#: all three are HBM-bound, and the pallas kernel moves ~9× fewer bytes
-#: than conv at small/medium channel counts, while conv's traffic wins
-#: at very wide batches — so auto = pallas for batch ≤ 64, conv above.
+FIR_BACKENDS = ("auto", "conv", "toeplitz", "fft")
 _FIR_BACKEND = "auto"
 _TOEPLITZ_TILE = 512
-_AUTO_PALLAS_MAX_BATCH = 64
-#: decim/poly/fused crossover, measured on the full 256-ch scanner chain
-#: (TPU cost_analysis, 2026-08-17): pallas 46 591 B/smp vs conv 45 348 —
-#: at wide batches XLA's conv fills the 128 MXU lanes with the channel
-#: axis and wins, same crossover as the stride-1 study
-#: (docs/fir_backend.md).  The grouped fused kernel stays available for
-#: wider banks by raising this cap.
-_AUTO_PALLAS_MAX_BATCH_DECIM = 64
 
 
 def set_fir_backend(name: str):
     global _FIR_BACKEND
-    assert name in ("auto", "conv", "toeplitz", "pallas"), name
+    if name not in FIR_BACKENDS:
+        raise ValueError(f"FIR backend {name!r} not in {FIR_BACKENDS}")
     _FIR_BACKEND = name
 
 
@@ -65,42 +60,61 @@ def get_fir_backend() -> str:
     return _FIR_BACKEND
 
 
-def _toeplitz_matrix(taps: np.ndarray, tile: int) -> np.ndarray:
+def _toeplitz_matrix(taps: np.ndarray, tile: int,
+                     stride: int = 1) -> np.ndarray:
+    """[tile*stride + K - 1, tile] band: column j holds the taps at rows
+    j*stride .. j*stride+K-1."""
     K = len(taps)
-    H = np.zeros((tile + K - 1, tile), np.float32)
+    H = np.zeros((tile * stride + K - 1, tile), taps.dtype)
     for j in range(tile):
-        H[j:j + K, j] = taps
+        H[j * stride:j * stride + K, j] = taps
     return H
 
 
-def _correlate_toeplitz(x: jnp.ndarray, taps: np.ndarray) -> jnp.ndarray:
-    """Stride-1 real-tap correlation as a banded-Toeplitz matmul."""
+def _correlate_toeplitz(x: jnp.ndarray, taps: np.ndarray,
+                        stride: int = 1) -> jnp.ndarray:
+    """Strided correlation as a banded-Toeplitz matmul."""
+    taps = np.asarray(taps)
     lead = x.shape[:-1]
     L = x.shape[-1]
-    K = int(np.asarray(taps).shape[-1])
-    T = L - (K - 1)
+    K = int(taps.shape[-1])
+    M = (L - K) // stride + 1
     tile = _TOEPLITZ_TILE
+    span = tile * stride
     cplx = jnp.iscomplexobj(x)
     xf = (jnp.concatenate([jnp.real(x).reshape(-1, L),
                            jnp.imag(x).reshape(-1, L)], axis=0)
           if cplx else x.reshape(-1, L)).astype(jnp.float32)
-    T_pad = ((T + tile - 1) // tile) * tile
-    if T_pad != T:
-        xf = jnp.pad(xf, ((0, 0), (0, T_pad - T)))
-    rows = T_pad // tile
-    idx = (np.arange(rows)[:, None] * tile
-           + np.arange(tile + K - 1)[None, :])
-    w = xf[:, idx]                                        # [B, rows, tile+K-1]
-    H = jnp.asarray(_toeplitz_matrix(np.asarray(taps, np.float32), tile))
-    y = jnp.einsum("brw,wt->brt", w, H,
-                   preferred_element_type=jnp.float32)
-    y = y.reshape(xf.shape[0], T_pad)[:, :T]
-    if cplx:
-        h = y.shape[0] // 2
-        out = jax.lax.complex(y[:h], y[h:])
+    rows = -(-M // tile)
+    need = rows * span + K - 1
+    if need > L:
+        xf = jnp.pad(xf, ((0, 0), (0, need - L)))
+    idx = (np.arange(rows)[:, None] * span
+           + np.arange(span + K - 1)[None, :])
+    w = xf[:, idx]                                    # [B, rows, span+K-1]
+    if np.iscomplexobj(taps):
+        H = np.concatenate(
+            [_toeplitz_matrix(np.real(taps).astype(np.float32), tile,
+                              stride),
+             _toeplitz_matrix(np.imag(taps).astype(np.float32), tile,
+                              stride)], axis=1)
     else:
-        out = y
-    return out.reshape(lead + (T,))
+        H = _toeplitz_matrix(taps.astype(np.float32), tile, stride)
+    y = jnp.einsum("brw,wt->brt", w, jnp.asarray(H),
+                   preferred_element_type=jnp.float32)
+    n = y.shape[0]
+    if np.iscomplexobj(taps):
+        a = y[..., :tile].reshape(n, rows * tile)[:, :M]   # x * Re h
+        b = y[..., tile:].reshape(n, rows * tile)[:, :M]   # x * Im h
+        if cplx:
+            h = n // 2
+            out = jax.lax.complex(a[:h] - b[h:], b[:h] + a[h:])
+        else:
+            out = jax.lax.complex(a, b)
+    else:
+        y = y.reshape(n, rows * tile)[:, :M]
+        out = jax.lax.complex(y[:n // 2], y[n // 2:]) if cplx else y
+    return out.reshape(lead + (M,))
 
 
 def _conv1d(x: jnp.ndarray, kernel: jnp.ndarray, stride: int,
@@ -112,152 +126,39 @@ def _conv1d(x: jnp.ndarray, kernel: jnp.ndarray, stride: int,
         preferred_element_type=jnp.float32)
 
 
-def _correlate_fft(x: jnp.ndarray, taps) -> jnp.ndarray:
-    """Stride-1 correlation via one full-block FFT (frequency-domain
-    overlap-save): out[i] = Σ_k x[i+k]·h[k] = ifft(fft(x)·fft(rev h)),
-    sliced at the K−1 group delay."""
+def _correlate_fft(x: jnp.ndarray, taps, stride: int = 1) -> jnp.ndarray:
+    """Correlation via one full-block FFT (frequency-domain overlap-save):
+    out[i] = Σ_k x[i+k]·h[k] = ifft(fft(x)·fft(rev h)), sliced at the K−1
+    group delay and decimated by ``stride``."""
+    taps = np.asarray(taps)
     W = x.shape[-1]
-    K = int(np.asarray(taps).shape[-1])
-    T = W - (K - 1)
+    K = int(taps.shape[-1])
+    M = (W - K) // stride + 1
     N = 1 << int(np.ceil(np.log2(W + K)))
-    h_rev = np.asarray(taps)[::-1]
+    h_rev = taps[::-1]
     x_c = x.astype(jnp.complex64)
     H = jnp.fft.fft(jnp.asarray(h_rev, jnp.complex64), n=N)
     Y = jnp.fft.ifft(jnp.fft.fft(x_c, n=N, axis=-1) * H, axis=-1)
-    out = Y[..., K - 1:K - 1 + T]
-    if not jnp.iscomplexobj(x) and not np.iscomplexobj(np.asarray(taps)):
+    out = Y[..., K - 1:K - 1 + (M - 1) * stride + 1:stride]
+    if not jnp.iscomplexobj(x) and not np.iscomplexobj(taps):
         return jnp.real(out).astype(jnp.float32)
     return out.astype(jnp.complex64)
 
 
-def correlate(x: jnp.ndarray, taps: jnp.ndarray, stride: int = 1) -> jnp.ndarray:
-    """out[..., i] = sum_k x[..., i*stride + k] * taps[k].
-
-    ``x`` may be real float32 or complex64; ``taps`` real or complex numpy /
-    jnp 1-D array.  Batched over all leading axes.
-    """
+def _correlate_conv(x: jnp.ndarray, taps, stride: int) -> jnp.ndarray:
     lead = x.shape[:-1]
     W = x.shape[-1]
     K = taps.shape[-1]
     taps_c = np.iscomplexobj(taps) if isinstance(taps, np.ndarray) \
         else jnp.iscomplexobj(taps)
-    x_c = jnp.iscomplexobj(x)
-
-    # COMPLEX-tap filters on complex input (any stride): ONE banded-
-    # matmul kernel computing both output parts, with the complex cross
-    # terms in the tap matrix.  The alternative is TWO real-tap pallas
-    # calls plus a complex combine — duplicate split/pad glue and a
-    # second tap matrix (measured 293 vs 173 B/sample for the WFM
-    # 19 kHz pilot band-pass).  Real-tap complex-input stages stay on
-    # the single-call plane routes below (same glue, 4x smaller tap
-    # matrix).
-    if x_c and taps_c and _FIR_BACKEND in ("auto", "pallas") \
-            and isinstance(taps, np.ndarray) \
-            and jax.default_backend() not in ("cpu",) \
-            and (W - (K - 1)) % stride == 0 \
-            and (W - (K - 1)) // stride >= 128:
-        batch = int(np.prod(lead)) if lead else 1
-        if batch <= _AUTO_PALLAS_MAX_BATCH:
-            from .pallas_fir import cplx_pallas_ok, fir_cplx_apply_any
-            M = (W - (K - 1)) // stride
-            t = cplx_pallas_ok(K, stride, batch=batch, m_out=M)
-            if t is not None:
-                return fir_cplx_apply_any(x, taps, stride, tile=t)
-
-    if stride == 1 and not taps_c and _FIR_BACKEND != "conv" \
-            and W - (K - 1) >= 128 and K - 1 <= _TOEPLITZ_TILE:
-        backend = _FIR_BACKEND
-        if backend == "auto":
-            batch = int(np.prod(lead)) if lead else 1
-            on_tpu = jax.default_backend() not in ("cpu",)
-            backend = "pallas" if (on_tpu and
-                                   batch <= _AUTO_PALLAS_MAX_BATCH) \
-                else "conv"
-        if backend == "toeplitz":
-            return _correlate_toeplitz(x, np.asarray(taps))
-        if backend == "pallas":
-            from .pallas_fir import fir_apply_any, real_pallas_tile
-            batch = int(np.prod(lead)) if lead else 1
-            t = real_pallas_tile(K, 1, m_out=W - (K - 1),
-                                 batch=2 * batch if x_c else batch)
-            if t is not None:
-                return fir_apply_any(x, np.asarray(taps), tile=t)
-            return fir_apply_any(x, np.asarray(taps))
-
-    # Mid-K stride-1 filters (512 < K-1 <= 1024, e.g. the WFM 19 kHz
-    # pilot band-pass, K=633): the banded pallas kernel with a 1024
-    # tile still beats FFT overlap-save — XLA's FFT passes cost ~3x the
-    # bytes (measured: pilot stage 338 -> ~100 B/demod-sample).  The
-    # [tile+K-1, tile] f32 tap matrix is 8.4 MB VMEM, inside the 16 MB
-    # scoped budget.
-    if stride == 1 and _FIR_BACKEND in ("auto", "pallas") \
-            and jax.default_backend() not in ("cpu",) \
-            and _TOEPLITZ_TILE < K - 1 and W - (K - 1) >= 128:
-        batch = int(np.prod(lead)) if lead else 1
-        if batch <= _AUTO_PALLAS_MAX_BATCH:
-            from .pallas_fir import fir_apply_any, real_pallas_tile
-            # channel-blocked kernel (batch >= 4 incl. complex planes):
-            # the window covers all K taps for ANY tile, so a small
-            # tile keeps the [tile+K-1, tile] matrix cheap.  Flat
-            # single-row kernels need K-1 <= tile <= 1024.
-            eff = 2 * batch if x_c else batch
-            t = real_pallas_tile(K, 1, m_out=W - (K - 1), batch=eff) \
-                if eff >= 4 else (1024 if K - 1 <= 1024 else None)
-            if t is not None:
-                if taps_c:
-                    hr = np.real(np.asarray(taps))
-                    hi = np.imag(np.asarray(taps))
-                    return (fir_apply_any(x, hr, tile=t)
-                            + 1j * fir_apply_any(x, hi, tile=t))
-                return fir_apply_any(x, np.asarray(taps), tile=t)
-
-    # Large-K stride-1 filters (WFM pilot band-pass ~3.8k taps, CW/VOR
-    # channel filters): FFT overlap-save — a few FFT passes instead of a
-    # banded matmul whose tap matrix would blow the VMEM budget.
-    if stride == 1 and K - 1 > _TOEPLITZ_TILE \
-            and _FIR_BACKEND in ("auto", "pallas") \
-            and jax.default_backend() not in ("cpu",) \
-            and W - (K - 1) >= 128:
-        return _correlate_fft(x, taps)
-
-    # Complex-tap stride-1 filters (e.g. the WFM pilot band-pass):
-    # y = corr(x, Re h) + j·corr(x, Im h) — two real-tap pallas passes
-    # instead of the 2×2-feature conv (same ~9× byte blowup).
-    if stride == 1 and taps_c and _FIR_BACKEND in ("auto", "pallas") \
-            and W - (K - 1) >= 128 and K - 1 <= _TOEPLITZ_TILE:
-        batch = int(np.prod(lead)) if lead else 1
-        if jax.default_backend() not in ("cpu",) \
-                and batch <= _AUTO_PALLAS_MAX_BATCH:
-            from .pallas_fir import fir_apply_any
-            hr = np.real(np.asarray(taps))
-            hi = np.imag(np.asarray(taps))
-            return fir_apply_any(x, hr) + 1j * fir_apply_any(x, hi)
-
-    # Decimating stages: XLA's conv lowering moves ~9× the operand bytes
-    # for 1-2 feature dims (docs/fir_backend.md), so on TPU route them
-    # through the strided-banded-matmul pallas kernel.
-    if stride > 1 and not taps_c \
-            and _FIR_BACKEND in ("auto", "pallas") \
-            and (W - (K - 1)) % stride == 0 \
-            and (W - (K - 1)) // stride >= 128:
-        batch = int(np.prod(lead)) if lead else 1
-        if jax.default_backend() not in ("cpu",) \
-                and batch <= _AUTO_PALLAS_MAX_BATCH_DECIM:
-            from .pallas_fir import fir_decim_apply_any, real_pallas_tile
-            M = (W - (K - 1)) // stride
-            eff = 2 * batch if x_c else batch
-            t = real_pallas_tile(K, stride, m_out=M, batch=eff) or 256
-            return fir_decim_apply_any(x, np.asarray(taps), stride,
-                                       tile=t)
-
-    if not x_c and not taps_c:
+    if not jnp.iscomplexobj(x) and not taps_c:
         xf = x.reshape((-1, 1, W)).astype(jnp.float32)
         ker = jnp.asarray(taps, jnp.float32).reshape((1, 1, K))
         y = _conv1d(xf, ker, stride)
         return y.reshape(lead + (y.shape[-1],))
 
     # Complex path: features = (re, im).
-    if x_c:
+    if jnp.iscomplexobj(x):
         xf = jnp.stack([jnp.real(x), jnp.imag(x)], axis=-2)  # [..., 2, W]
     else:
         xf = jnp.stack([x, jnp.zeros_like(x)], axis=-2)
@@ -271,14 +172,31 @@ def correlate(x: jnp.ndarray, taps: jnp.ndarray, stride: int = 1) -> jnp.ndarray
         # y_re = xr*hr - xi*hi ; y_im = xr*hi + xi*hr
         ker = jnp.stack([jnp.stack([hr, -hi]), jnp.stack([hi, hr])])  # [2,2,K]
         y = _conv1d(xf, ker, stride)                                 # [N,2,M]
-        yr, yi = y[:, 0], y[:, 1]
     else:
         ker = jnp.asarray(taps, jnp.float32).reshape((1, 1, K))
         ker = jnp.broadcast_to(ker, (2, 1, K))
         y = _conv1d(xf, ker, stride, groups=2)
-        yr, yi = y[:, 0], y[:, 1]
-    out = jax.lax.complex(yr, yi)
+    out = jax.lax.complex(y[:, 0], y[:, 1])
     return out.reshape(lead + (out.shape[-1],))
+
+
+def correlate(x: jnp.ndarray, taps: jnp.ndarray, stride: int = 1) -> jnp.ndarray:
+    """out[..., i] = sum_k x[..., i*stride + k] * taps[k].
+
+    ``x`` may be real float32 or complex64; ``taps`` real or complex numpy /
+    jnp 1-D array.  Batched over all leading axes.  The ``toeplitz`` and
+    ``fft`` routes need host (numpy) taps; traced taps always take
+    ``conv``.
+    """
+    backend = _FIR_BACKEND
+    if backend == "auto":
+        backend = "toeplitz" if jax.default_backend() == "gpu" else "conv"
+    if isinstance(taps, np.ndarray):
+        if backend == "toeplitz":
+            return _correlate_toeplitz(x, taps, stride)
+        if backend == "fft":
+            return _correlate_fft(x, taps, stride)
+    return _correlate_conv(x, taps, stride)
 
 
 class FIR(Block):

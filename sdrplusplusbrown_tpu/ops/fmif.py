@@ -5,9 +5,9 @@ a Nuttall-windowed ``bins``-point FFT of the trailing window is taken, only
 the strongest bin is kept, and the output is the centre tap of the
 (unnormalised) inverse FFT: out[n] = X_n[k*] · (−1)^{k*}.
 
-Naively this is T sequential FFTs; on TPU we reformulate as one batched
+Naively this is T sequential FFTs; here we reformulate as one batched
 matmul: all T sliding frames form a [T, bins] matrix (gather), the DFT is a
-[bins, bins] matrix, and the whole op is frames·window @ DFTᵀ on the MXU,
+[bins, bins] matrix, and the whole op is frames·window @ DFTᵀ,
 followed by an argmax-select per row.  No serial dependency at all.
 """
 

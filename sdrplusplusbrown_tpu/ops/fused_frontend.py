@@ -3,15 +3,15 @@ FIR's taps so the SHARED wideband is read once.
 
 The plain path materializes, per channel, a full-rate rotor table and a
 rotated copy of the wideband before the first halfband stage — at C=8 ×
-2.4 MS/s that is ~300 MB of HBM traffic per 0.1 s block and is exactly
-what makes the chain HBM-bound (docs/benchmarks.md).  Algebra:
+2.4 MS/s that is ~300 MB of device-memory traffic per 0.1 s block.
+Algebra:
 
     y_c[m] = Σ_k rot_c[mD+k−(K−1)]·x[mD+k−(K−1)]·h[k]
            = e^{j(φ_c + ω_c(mD−(K−1)))} · Σ_k x_ext[mD+k]·h[k]e^{jω_c k}
 
 so with channel-modulated taps g_c[k] = h[k]·e^{jω_c k} the inner sum is
 one strided convolution of the UNBROADCAST wideband with C complex
-output channels (XLA lowers it onto the MXU with C·2 features), and the
+output channels (C·2 output features), and the
 NCO survives only as a twiddle at the DECIMATED rate.  Bytes go from
 O(C·T) to O(T + C·T/D) for the front stage.
 
@@ -38,8 +38,6 @@ def fused_params(offset_hz, samplerate: float, decim: int) -> dict:
     from .xlator import SPAN
     omega = -np.asarray(offset_hz, np.float64) * (_TWO_PI / samplerate)
     om_d = omega * decim
-    # the *_sup/*_bs spans feed the plane pipeline's in-kernel twiddle
-    # (ops/plane_frontend.py: SUP=2048 / BS=256 kernel geometry)
     return {
         "omega": jnp.asarray(omega, jnp.float32),
         "omega_span": jnp.asarray(np.mod(omega * SPAN, _TWO_PI),
@@ -48,14 +46,6 @@ def fused_params(offset_hz, samplerate: float, decim: int) -> dict:
                                  jnp.float32),
         "omega_dec_span": jnp.asarray(np.mod(om_d * SPAN, _TWO_PI),
                                       jnp.float32),
-        "omega_dec_sup": jnp.asarray(np.mod(om_d * 2048, _TWO_PI),
-                                     jnp.float32),
-        "omega_dec_bs": jnp.asarray(np.mod(om_d * 256, _TWO_PI),
-                                    jnp.float32),
-        # full-rate 1024-lane span for the mono kernel's in-kernel mix
-        # blocks (ops/mono_frontend.py); wrapped to (−π, π] in f64
-        "omega_mb": jnp.asarray(
-            np.mod(omega * 1024 + np.pi, _TWO_PI) - np.pi, jnp.float32),
     }
 
 
@@ -100,48 +90,17 @@ class SharedXlateDecimFIR(Block):
         gr = h * jnp.cos(ang)
         gi = h * jnp.sin(ang)
 
-        from .fir import (get_fir_backend,
-                          _AUTO_PALLAS_MAX_BATCH_DECIM)
-        use_pallas = (get_fir_backend() in ("auto", "pallas")
-                      and jax.default_backend() not in ("cpu",)
-                      and C <= _AUTO_PALLAS_MAX_BATCH_DECIM
-                      and K <= 320 and T // D >= 128)
-        if use_pallas:
-            # window-matrix kernel: the shared wideband is DMA'd once
-            # per super-tile and all C channels come from one MXU matmul
-            # (ops/pallas_fir.fused_mix_decim_apply)
-            from .pallas_fir import fused_mix_decim_apply
-            # ROW-BLOCK packing (re rows [0:C], im rows [C:2C]) so the
-            # kernel's complex recombine is a free row-block slice
-            g = jnp.concatenate(
-                [jnp.concatenate([gr, -gi], axis=1),
-                 jnp.concatenate([gi, gr], axis=1)], axis=0)
-            # wide banks are processed in <=64-channel groups: the VPU
-            # accumulator [2C, sup*D] must stay inside VMEM, and
-            # re-reading the SHARED wideband per group costs ~8 B/sample
-            GROUP = 64
-            if C <= GROUP:
-                pre = fused_mix_decim_apply(ext, g, D)
-            else:
-                parts = []
-                for c0 in range(0, C, GROUP):
-                    c1 = min(c0 + GROUP, C)
-                    gg = jnp.concatenate([g[c0:c1], g[C + c0:C + c1]],
-                                         axis=0)
-                    parts.append(fused_mix_decim_apply(ext, gg, D))
-                pre = jnp.concatenate(parts, axis=0)
-        else:
-            # one strided conv of the shared wideband: features (re,
-            # im), outputs (re_c, im_c) interleaved
-            xf = jnp.stack([jnp.real(ext), jnp.imag(ext)])[None]
-            kern = jnp.zeros((2 * C, 2, K), jnp.float32)
-            kern = kern.at[0::2, 0].set(gr).at[0::2, 1].set(-gi)
-            kern = kern.at[1::2, 0].set(gi).at[1::2, 1].set(gr)
-            y = jax.lax.conv_general_dilated(
-                xf, kern, window_strides=(D,), padding="VALID",
-                dimension_numbers=_DN,
-                preferred_element_type=jnp.float32)[0]   # [2C, M]
-            pre = jax.lax.complex(y[0::2], y[1::2])      # [C, M]
+        # one strided conv of the shared wideband: features (re, im),
+        # outputs (re_c, im_c) interleaved
+        xf = jnp.stack([jnp.real(ext), jnp.imag(ext)])[None]
+        kern = jnp.zeros((2 * C, 2, K), jnp.float32)
+        kern = kern.at[0::2, 0].set(gr).at[0::2, 1].set(-gi)
+        kern = kern.at[1::2, 0].set(gi).at[1::2, 1].set(gr)
+        y = jax.lax.conv_general_dilated(
+            xf, kern, window_strides=(D,), padding="VALID",
+            dimension_numbers=_DN,
+            preferred_element_type=jnp.float32)[0]       # [2C, M]
+        pre = jax.lax.complex(y[0::2], y[1::2])          # [C, M]
 
         # decimated-rate twiddle e^{j(φ_c − ω_c(K−1) + ω_c D·m)}
         M = pre.shape[-1]

@@ -7,7 +7,7 @@ header; the BP loop lives in the vendored MSHV decoder).  Here the
 decoder is a DENSE masked formulation batched over candidates: the
 message tensor is [B, M, N] (B candidates, M checks, N variables) and
 each normalized-min-sum iteration is a handful of masked reductions —
-all MXU/VPU-friendly, no gather/scatter, one `lax.scan` over a fixed
+all dense-array friendly, no gather/scatter, one `lax.scan` over a fixed
 iteration count.  For FT8's 83×174 matrix the mask is 14 KB; hundreds
 of sync candidates decode in one jitted call.
 

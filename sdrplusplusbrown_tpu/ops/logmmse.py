@@ -24,7 +24,7 @@ reference: misc_modules/noise_reduction_logmmse/src/logmmse.h.  Algorithm
         linear interpolation (update_noise_mu2 wideband branch,
         logmmse.h:217-253, arrays.cpp:433-469 linearInterpolateHoles).
 
-TPU-native structure: all frames of a block are FFT'd in one batched FFT;
+Vectorized structure: all frames of a block are FFT'd in one batched FFT;
 the only sequential parts are two light ``lax.scan``s — the history-ring
 bookkeeping and the decision-directed ξ recursion — over per-frame [nFFT]
 vectors.  The overlap-add is closed-form (shift + add), not a loop.  E1 is

@@ -3,7 +3,7 @@
 reference: misc_modules/noise_reduction_logmmse/src/omlsa_mcra/* — the
 fork vendors a fixed-point OMLSA-MCRA implementation (CORDIC + base-4
 FFT) as the `AFNR_OMLSA_MCRA` audio NR option.  This is a float32
-TPU-native implementation of the same published algorithm
+Vectorized implementation of the same published algorithm
 (Cohen & Berdugo 2001/2002):
 
   * STFT, 50 % overlap, Hann analysis/synthesis.

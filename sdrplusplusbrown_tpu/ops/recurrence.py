@@ -4,7 +4,7 @@ The reference implements de-emphasis, DC blocking and the noise-blanker
 envelope as per-sample sequential loops (reference:
 core/src/dsp/filter/deephasis.h:14-80, correction/dc_blocker.h,
 noise_reduction/noise_blanker.h:38-58).  All three are *first-order linear*
-recurrences y[n] = a[n]*y[n-1] + b[n]; on TPU we evaluate them in
+recurrences y[n] = a[n]*y[n-1] + b[n]; here we evaluate them in
 O(log T) depth with ``jax.lax.associative_scan`` over affine-map composition
 instead of a serial scan — data-parallel across the whole block and across
 batched channels.
@@ -47,9 +47,8 @@ class Deemphasis(Block):
     Lowering: at audio rates the pole r = 1-α decays below fp32
     resolution within a few dozen samples (r ≈ 0.71 at 48 kHz/50 µs), so
     the IIR is evaluated EXACTLY (to fp32) as a K-tap FIR over the
-    zero-extended block plus an r^(n+1)·y0 head correction — one MXU
-    pass instead of the associative scan's O(log T) full-array sweeps
-    (measured 56 → ~6 B/input-sample in the WFM-8 chain).  The carried
+    zero-extended block plus an r^(n+1)·y0 head correction — one
+    pass instead of the associative scan's O(log T) full-array sweeps.  The carried
     state stays the scalar y[-1], so checkpoints and the time-sharded
     affine-scan rule (parallel/stream_shard.py) are unchanged.  Poles
     too slow for a ≤512-tap horizon fall back to the scan.

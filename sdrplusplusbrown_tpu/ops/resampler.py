@@ -1,6 +1,6 @@
 """Polyphase rational resampling and power-of-two decimation.
 
-TPU-native re-design of the reference's multirate stack:
+Vectorized re-design of the reference's multirate stack:
 
   * ``PolyphaseBank`` construction — prototype lowpass split into ``interp``
     phases, tapsPerPhase = ceil(size/phases), *reversed* phase order
@@ -23,7 +23,7 @@ resampler emits a data-dependent ``outCount``.  Requiring the block length to
 be a multiple of ``decim`` makes the (phase, offset) carry *identically zero*
 across blocks, so output length is exactly ``len*interp//decim`` and the whole
 gather pattern becomes a single strided conv with ``interp`` output channels
-(one per output phase, offsets folded into the kernels) — an MXU matmul.
+(one per output phase, offsets folded into the kernels).
 """
 
 from __future__ import annotations
@@ -32,14 +32,13 @@ import math
 from fractions import Fraction
 from typing import List
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from . import taps as taps_mod
 from .fir import FIR, _conv1d
 from ..runtime.block import Block, Chain
-
-import jax
 
 
 def build_polyphase_bank(interp: int, prototype: np.ndarray) -> np.ndarray:
@@ -95,38 +94,6 @@ class PolyphaseResampler(Block):
                 f"pipeline granularity (Block.in_multiple)")
         lead = x.shape[:-1]
         state = state.astype(x.dtype) if state.dtype != x.dtype else state
-        kw = self.kernel.shape[1]
-        # TPU: the conv lowering moves ~9x the operand bytes for 1-2
-        # feature dims (docs/fir_backend.md); route through the banded-
-        # matmul pallas kernel instead.
-        from .fir import (get_fir_backend,
-                          _AUTO_PALLAS_MAX_BATCH_DECIM)
-        import numpy as _np
-        batch = int(_np.prod(lead)) if lead else 1
-        from .pallas_fir import (poly_resample_apply_any,
-                                 poly_pallas_ok)
-        if get_fir_backend() in ("auto", "pallas") \
-                and jax.default_backend() not in ("cpu",) \
-                and batch <= _AUTO_PALLAS_MAX_BATCH_DECIM \
-                and x.shape[-1] // self.decim >= 16:
-            m_out = x.shape[-1] // self.decim
-            cfg = poly_pallas_ok(self.interp, self.decim, kw,
-                                 m_out=m_out, batch=batch)
-            if cfg is not None:
-                mt, use_roll = cfg
-                # history concat + pads fuse into the kernel-operand
-                # build (carry=...); no materialized ext round-trip
-                out = poly_resample_apply_any(x, self.kernel,
-                                              self.interp, self.decim,
-                                              mt=mt, use_roll=use_roll,
-                                              carry=state)
-                h = self.tpp - 1
-                if x.shape[-1] >= h:
-                    new_state = x[..., x.shape[-1] - h:]
-                else:
-                    new_state = jnp.concatenate(
-                        [state, x], axis=-1)[..., -h:]
-                return out, new_state
         ext = jnp.concatenate([state, x], axis=-1)
         W = ext.shape[-1]
         if jnp.iscomplexobj(x):
@@ -199,8 +166,8 @@ def design_decim_stage(fs_in: float, decim: int,
 
     Aliasing into the protected band after decimation comes from
     [fs_in/decim - protect, fs_in/2]; we place the stopband edge there
-    and the passband edge at ``protect`` (TPU-side replacement for the
-    reference's pre-baked tables, multirate/decim/plans.h).
+    and the passband edge at ``protect`` (designed at build time in place
+    of the reference's pre-baked tables, multirate/decim/plans.h).
     """
     pass_edge = protect
     stop_edge = fs_in / float(decim) - protect
@@ -225,12 +192,12 @@ class PowerDecimator(Block):
 
     reference: core/src/dsp/multirate/power_decimator.h (max ratio 2^13)
     — the reference cascades HALFBANDS, the CPU-optimal plan (fewest
-    taps·samples).  On TPU the chain is HBM-bound, so each intermediate
-    buffer costs a write+read regardless of tap count: stages decimate
-    by 4 where the tap budget allows (K ≤ ``MAX_STAGE_TAPS``), halving
-    the number of full-rate intermediates for the same ~90 dB band
-    protection.  The fold-the-mix-down front end (ops/fused_frontend)
-    then absorbs a ratio-4 predecimation in ONE kernel.
+    taps·samples).  Here each intermediate buffer costs a device-memory
+    write+read regardless of tap count, so stages decimate by 4 where
+    the tap budget allows (K ≤ ``MAX_STAGE_TAPS``), halving the number
+    of full-rate intermediates for the same ~90 dB band protection.  The
+    fold-the-mix-down front end (ops/fused_frontend) then absorbs a
+    ratio-4 predecimation in one strided convolution.
     """
 
     MAX_RATIO = 8192

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -84,20 +85,6 @@ class SpectrumFFT(Block):
 
     def apply(self, params, state, x):
         pad = self.fft_size - self.nz_size
-        # TPU: fused 4-step matmul FFT + window + |X|² + dB in one
-        # pallas pass (ops/pallas_fft.py) — jnp.fft costs ~22 HBM
-        # round-trips here, and the outside window multiply two more
-        from .pallas_fft import fft_pow_pallas_ok, fft_power_db
-        if fft_pow_pallas_ok(self.fft_size) and jnp.iscomplexobj(x):
-            xp = x
-            if pad:
-                padding = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
-                xp = jnp.pad(xp, padding)
-            w_full = np.concatenate(
-                [self.window, np.zeros(pad, np.float32)]) if pad \
-                else self.window
-            return fft_power_db(xp, self.fft_size, self.floor_db,
-                                window=w_full), state
         w = jnp.asarray(self.window)
         xw = x * w
         if pad:
@@ -124,33 +111,9 @@ class SpectrumPath(Block):
         self.in_multiple = self.reshaper.in_multiple
 
     def apply(self, params, state, x):
-        # TPU: the keep/skip framing slice fuses into the pallas FFT's
-        # plane extraction (one pass instead of materialized complex
-        # frames + a second split pass — ops/pallas_fft.py).  ``x`` may
-        # be (xr, xi) float32 planes — no c64 X64Split passes at all.
-        from .pallas_fft import (fft_pow_pallas_ok, spectrum_path_db,
-                                 spectrum_frames_ok, spectrum_frames_db)
-        in_planes = isinstance(x, tuple)
-        if in_planes and x[0].ndim == 1:
-            T = int(x[0].shape[-1])
-            n = T // self.reshaper.interval
-            if spectrum_frames_ok(self.fft_size, self.reshaper.keep,
-                                  self.reshaper.interval, T, n):
-                db = spectrum_frames_db(x[0], x[1], self.reshaper.keep,
-                                        self.reshaper.interval,
-                                        self.fft_size,
-                                        self.fft.floor_db,
-                                        self.fft.window)
-                return db, state
-        if fft_pow_pallas_ok(self.fft_size) and (
-                in_planes or jnp.iscomplexobj(x)):
-            db = spectrum_path_db(x, self.reshaper.keep,
-                                  self.reshaper.interval, self.fft_size,
-                                  self.fft.floor_db, self.fft.window)
-            return db, state
-        if in_planes:
-            import jax as _jax
-            x = _jax.lax.complex(*x)
+        """x: complex wideband [..., T] or its (xr, xi) float32 planes."""
+        if isinstance(x, tuple):
+            x = jax.lax.complex(*x)
         frames, _ = self.reshaper.apply(None, None, x)
         db, _ = self.fft.apply(None, None, frames)
         return db, state

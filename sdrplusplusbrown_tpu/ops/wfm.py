@@ -18,11 +18,11 @@ Pilot recovery has two modes:
     delayed one sample to match the PLL's one-sample output lag; fully
     parallel (no per-sample dependency anywhere in the WFM chain).
 
-MPX-rate decimation (TPU redesign, not in the reference): the composite
+MPX-rate decimation (a redesign, not in the reference): the composite
 MPX signal occupies at most 59.4 kHz (RDS 57k±2.4k; 53 kHz without RDS),
 but the reference runs the whole stereo section at the 500 kHz IF rate
-(broadcast_fm.h:144-215).  The chain is HBM-bound on TPU, so the real
-MPX is decimated by ``mpx_decim`` (cascaded protecting halfbands) right
+(broadcast_fm.h:144-215).  Every stage here is a device-memory pass, so
+the real MPX is decimated by ``mpx_decim`` (cascaded protecting halfbands) right
 after the discriminator; the pilot/stereo/RDS/audio stages then run at
 ``samplerate/mpx_decim`` — identical math at identical relative
 frequencies, a fraction of the bytes.  Audio leaves at the decimated
@@ -103,9 +103,8 @@ class BroadcastFM(Block):
         # any audio rate >= 38 kHz, so when ``audio_rate`` is rationally
         # related to the MPX rate the LP and the radio's AF resampler
         # MERGE into one polyphase stage straight to the audio rate —
-        # one banded-matmul pass instead of three (15 kHz FIR +
-        # halfband + 96/125 polyphase: measured 48.8 + 65.7 vs ~20
-        # B/input-sample in the WFM-8 chain).
+        # one pass instead of three (15 kHz FIR + halfband + 96/125
+        # polyphase).
         self.audio_fir = None
         self.audio_poly = None
         self.in_multiple = self.mpx_decim
@@ -148,10 +147,6 @@ class BroadcastFM(Block):
             "lpr_delay": self.lpr_delay.init_state(batch_shape, jnp.float32),
             "lmr_delay": self.lmr_delay.init_state(batch_shape, jnp.complex64),
         }
-        if self.stereo and self.pll_mode == "normalize":
-            # fused-kernel history (ops/pallas_wfm.py): last K MPX samples
-            st["mpx_hist"] = jnp.zeros(
-                batch_shape + (len(self.pilot_taps),), jnp.float32)
         if self.audio_fir is not None:
             st["audio_fir"] = self.audio_fir.init_state(batch_shape + (2,))
         if self.audio_poly is not None:
@@ -163,22 +158,7 @@ class BroadcastFM(Block):
         return st
 
     def _stereo_section(self, state, st, mpx):
-        """MPX → (L, R) planes [2, ..., T] at the MPX rate.  Routes to
-        the fused pallas kernel (ops/pallas_wfm.py) when the shape and
-        backend allow; the XLA path is the reference-shaped fallback."""
-        from .pallas_wfm import wfm_stereo_ok, wfm_stereo_apply
-        K = len(self.pilot_taps)
-        d = self.lpr_delay.delay
-        use_kernel = (self.pll_mode == "normalize" and mpx.ndim == 2
-                      and wfm_stereo_ok(mpx.shape[0], mpx.shape[-1], K, d))
-        if use_kernel:
-            ext = jnp.concatenate([state["mpx_hist"], mpx], axis=-1)
-            lr2 = wfm_stereo_apply(ext, self.pilot_taps,
-                                   self.pilot_phase_corr, d)
-            st["mpx_hist"] = ext[..., ext.shape[-1] - K:]
-            # scan-path / delay states pass through untouched: switching
-            # backends mid-stream would cost a one-block seam, nothing else
-            return lr2
+        """MPX → (L, R) planes [2, ..., T] at the MPX rate."""
         mpx_c = mpx.astype(jnp.complex64)
         pilot, st["pilot_fir"] = self.pilot_fir.apply(
             None, state["pilot_fir"], mpx_c)
@@ -197,9 +177,6 @@ class BroadcastFM(Block):
         vco2 = jnp.conj(vco)
         lmr_c = lmr_c * vco2 * vco2
         lmr = jnp.real(lmr_c) * 2.0
-        if "mpx_hist" in state:
-            hist = jnp.concatenate([state["mpx_hist"], mpx], axis=-1)
-            st["mpx_hist"] = hist[..., hist.shape[-1] - K:]
         return jnp.stack([lpr + lmr, lpr - lmr], axis=0)  # [2, ..., T]
 
     def _audio_out(self, state, st, lr2):
@@ -214,82 +191,13 @@ class BroadcastFM(Block):
             return lr
         return jnp.moveaxis(lr2, 0, -2)
 
-    #: apply_planes accepts the ([2C, W], m_if) raw front-end handoff
-    accepts_raw_planes = True
-
-    def _audio_pipe(self, C: int, interpret: bool = False):
-        """Lazily-built MPX-rate audio tail kernel (MPXAudioPoly)."""
-        if self.audio_poly is None:
-            return None
-        cache = getattr(self, "_audio_pipe_cache", None)
-        if cache is None:
-            cache = self._audio_pipe_cache = {}
-        key = (C, interpret)
-        if key not in cache:
-            from .wfm_kernel import build_mpx_audio_poly
-            cache[key] = build_mpx_audio_poly(self.audio_poly, C,
-                                              interpret=interpret)
-        return cache[key]
-
-    def _wfm_pipe(self, C: int, interpret: bool = False):
-        """Lazily-built whole-demod kernel (ops/wfm_kernel.py): quad +
-        MPX halfbands + stereo section in one pallas pass.  None when
-        the config can't use it (scan PLL, RDS, mono)."""
-        cache = getattr(self, "_wfm_pipe_cache", None)
-        if cache is None:
-            cache = self._wfm_pipe_cache = {}
-        key = (C, interpret)
-        if key not in cache:
-            from .wfm_kernel import build_wfm_pipeline
-            cache[key] = build_wfm_pipeline(self, C, interpret=interpret)
-        return cache[key]
-
-    def apply_planes(self, params, state, planes, _force_kernel=None):
+    def apply_planes(self, params, state, planes):
         """Like apply(), but the IF arrives as (re, im) float32 planes
-        from the plane-protocol front end — the discriminator consumes
-        them directly (ops/demod.py Quadrature.apply_planes), so the
-        complex IF array never exists in HBM.  On TPU the whole demod
-        (quad + halfbands + stereo) runs as one kernel when supported.
-
-        ``planes`` may also be the RAW ([2C, W] stacked buffer, m_if)
-        handoff from the monolithic/channelized front-end kernels —
-        the kernel consumes it directly, no slice/concat HBM pass."""
-        is_raw = isinstance(planes[1], int)
-        if is_raw:
-            buf, m_if = planes
-            C = buf.shape[0] // 2
-            xr = xi = None
-        else:
-            xr, xi = planes
-            C, m_if = xr.shape[0] if xr.ndim == 2 else 0, xr.shape[-1]
-        use_kernel = _force_kernel
-        if use_kernel is None:
-            import jax as _jax
-            from .fir import get_fir_backend
-            use_kernel = (get_fir_backend() in ("auto", "pallas")
-                          and _jax.default_backend() not in ("cpu",)
-                          and (is_raw or xr.ndim == 2))
-        if use_kernel and (is_raw or xr.ndim == 2) and not self.rds_out:
-            pipe = self._wfm_pipe(C, bool(_force_kernel))
-            if pipe is not None:
-                st = dict(state)
-                apipe = self._audio_pipe(C, bool(_force_kernel))
-                lr2, st2 = pipe.apply(state,
-                                      planes[0] if is_raw else planes,
-                                      m_if, raw_audio=apipe is not None)
-                st.update(st2)
-                if apipe is not None:
-                    # AF polyphase (deemph-folded) straight off the raw
-                    # MPX planes — no trim slice / ext-build HBM passes
-                    raw_mpx, m_mpx = lr2
-                    lr, st["audio_rs"] = apipe.apply(
-                        state["audio_rs"], raw_mpx, m_mpx)
-                    return lr, st
-                lr = self._audio_out(state, st, lr2)
-                return lr, st
+        from the shared front end — the discriminator consumes them
+        directly (ops/demod.py Quadrature.apply_planes), so the complex
+        IF array is never built."""
+        xr, xi = planes
         st = dict(state)
-        if is_raw:                       # kernel unavailable: slice
-            xr, xi = buf[:C, :m_if], buf[C:2 * C, :m_if]
         mpx, st["quad"] = self.quad.apply_planes(state["quad"], xr, xi)
         return self._after_quad(params, state, st, mpx)
 

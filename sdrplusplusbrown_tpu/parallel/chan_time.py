@@ -1,10 +1,10 @@
 """Time×channel sharded CHANNELIZED radio pipeline — the production
-wide-bank path (PFB + pallas kernels) under ``shard_map``.
+wide-bank path (PFB front end) under ``shard_map``.
 
-The single-chip scanner path (models/radio.py:apply_channelized) is a
-2×-oversampled polyphase channelizer feeding a fused post-channelizer
-kernel (ops/chan_frontend.py) and a fused demod+audio kernel
-(ops/demod_kernel.py).  This module runs that SAME architecture over a
+The single-device scanner path (models/radio.py:apply_channelized) is a
+2×-oversampled polyphase channelizer feeding the per-channel gather,
+fine NCO, 2:1 decimation and bandwidth FIR, then the demod and audio
+chain.  This module runs that SAME architecture over a
 ``("time", "ch")`` mesh:
 
 * the wideband is time-sharded; the PFB's streaming state is a pure
@@ -25,8 +25,8 @@ kernel (ops/chan_frontend.py) and a fused demod+audio kernel
   on its replicated time slice — O(taps) per wideband sample, cheap next
   to the per-channel tail at scanner widths);
 * the squelch gate needs the GLOBAL block's mean |IF| (reference:
-  noise_reduction/squelch.h:55-69): per-shard sums (accumulated
-  in-kernel on the fused path) are ``psum``ed over "time".
+  noise_reduction/squelch.h:55-69): per-shard sums are ``psum``ed over
+  "time".
 
 Demod coverage (round 4): mono FM/NFM takes a zero-relay fast path
 (every demod state is reconstructed from a short trailing IF window);
@@ -37,9 +37,8 @@ PFB front end's IF, exactly as ShardedRadioPipeline runs them on the
 fused-VFO front end.
 
 Exactness: equal to the unsharded ``apply_channelized`` stream (same
-kernels, same state conventions) up to float32 phase-table rounding;
-tests/test_chan_time.py asserts >55 dB stream equality on both the
-chained and the (interpret-mode) pallas-kernel paths, for
+stages, same state conventions) up to float32 phase-table rounding;
+tests/test_chan_time.py asserts >55 dB stream equality for
 NFM/WFM-stereo/AM/USB/NFM-deemph.  Equality oracles score POPULATED
 channels: an idle FM channel demodulates noise floor whose quadrature
 angle is a chaotic ±π-wrap walk — both pipelines are 'correct' there
@@ -113,8 +112,7 @@ class ShardedChannelizedPipeline:
                  t_local: int, demod_id=DEMOD_NFM,
                  squelch_enabled: bool = True,
                  spectrum_fft: int = 0, spectrum_rate: float = 20.0,
-                 use_kernels: bool | None = None,
-                 interpret: bool = False, **radio_kwargs):
+                 **radio_kwargs):
         radio_kwargs.setdefault("pll_mode", "normalize")
         self.radio = Radio(in_samplerate, demod_id,
                            squelch_enabled=squelch_enabled,
@@ -139,12 +137,6 @@ class ShardedChannelizedPipeline:
         self.C_local = self.C // self.nc
         self.M = vb.M
         self.samplerate = float(in_samplerate)
-        self.interpret = bool(interpret)
-        if use_kernels is None:
-            from ..ops.fir import get_fir_backend
-            use_kernels = (get_fir_backend() in ("auto", "pallas")
-                           and jax.default_backend() not in ("cpu",))
-        self.use_kernels = bool(use_kernels) or self.interpret
 
         # ---- geometry ----------------------------------------------------
         g = self.granularity(r)
@@ -201,15 +193,6 @@ class ShardedChannelizedPipeline:
             assert t_local % self.spectrum.in_multiple == 0, (
                 t_local, self.spectrum.in_multiple)
 
-        if self.use_kernels:
-            self._chan_pipe = vb._chan_pipe(self.C_local,
-                                            interpret=self.interpret)
-            self._pz = vb._pallas_chz(self.interpret)
-            self._fm_pipe = (r._fm_audio_pipe(self.C_local,
-                                              self.interpret)
-                             if self._nfm_fast else None)
-        else:
-            self._chan_pipe = self._pz = self._fm_pipe = None
         self._step = self._build_step()
 
     # ------------------------------------------------------------------
@@ -313,7 +296,6 @@ class ShardedChannelizedPipeline:
     def _local_step(self, params, carry, x_local):
         r, vb = self.radio, self.vb
         ta = TIME_AXIS
-        Cl = self.C_local
         t_idx = jax.lax.axis_index(ta).astype(jnp.float32)
         nt = jax.lax.axis_size(ta)
 
@@ -321,24 +303,10 @@ class ShardedChannelizedPipeline:
         xt = left_halo(x_local, self.h_pfb, ta, carry["x_tail"])
         chz_state = vb.chz.state_from_tail(xt)
 
-        # ---- PFB bins (kernel or plane path) ----------------------------
+        # ---- PFB bins ---------------------------------------------------
         Tb = self.Tb_local
-        if self.use_kernels and self._chan_pipe is not None:
-            pad_to = self._chan_pipe._plan(Tb)["Tb_pad"]
-            if self._pz is not None and self._pz.ok_for(
-                    x_local.shape[-1], pad_to):
-                bins, _ = self._pz.apply(chz_state, x_local, pad_to)
-            else:
-                bins, _ = vb.chz.apply_planes(chz_state, x_local,
-                                              pad_to=pad_to)
-            M = self.M
-            # bins may ride the bf16 handoff dtype (pallas channelizer)
-            bins_tail_c = jax.lax.complex(
-                bins[:M, Tb - self.n_gath:Tb].astype(jnp.float32),
-                bins[M:, Tb - self.n_gath:Tb].astype(jnp.float32))
-        else:
-            bins_c, _ = vb.chz.apply(None, chz_state, x_local)
-            bins_tail_c = bins_c[..., Tb - self.n_gath:]
+        bins_c, _ = vb.chz.apply(None, chz_state, x_local)
+        bins_tail_c = bins_c[..., Tb - self.n_gath:]
 
         # ---- exact per-shard NCO phase -----------------------------------
         phase0 = jnp.mod(carry["front"]["xl"]
@@ -352,23 +320,15 @@ class ShardedChannelizedPipeline:
         front_in = _pshift_right(front_out, carry_front, ta)
         front_in["xl"] = phase0     # analytic (identical, but cheaper)
 
-        # ---- post-channelizer (fused kernel or chained) -----------------
-        if self.use_kernels and self._chan_pipe is not None:
-            st = dict(front_in)
-            raw = self._fm_pipe is not None
-            y, sq_sums, _ = self._chan_pipe.apply(
-                params, st, bins, Tb=Tb, raw=raw,
-                return_planes=not raw)
-        else:
-            y = jnp.take(bins_c, params["bin"], axis=0)
-            rot = rotor(phase0, params["xl"]["omega"],
-                        params["xl"]["omega_span"], Tb)
-            y = y * rot
-            y, _ = vb.decim2.apply(None, front_in["d2"], y)
-            if vb.filter_needed:
-                y, _ = vb.fir.apply(None, front_in["fir"], y)
-            sq_sums = jnp.sum(jnp.abs(y), axis=-1)
-            raw = False
+        # ---- post-channelizer --------------------------------------------
+        y = jnp.take(bins_c, params["bin"], axis=0)
+        rot = rotor(phase0, params["xl"]["omega"],
+                    params["xl"]["omega_span"], Tb)
+        y = y * rot
+        y, _ = vb.decim2.apply(None, front_in["d2"], y)
+        if vb.filter_needed:
+            y, _ = vb.fir.apply(None, front_in["fir"], y)
+        sq_sums = jnp.sum(jnp.abs(y), axis=-1)
 
         # ---- squelch gate over the GLOBAL block --------------------------
         gate = None
@@ -381,19 +341,7 @@ class ShardedChannelizedPipeline:
 
         if self._nfm_fast:
             # ---- demod states from the gated IF tail ---------------------
-            if raw:
-                iq_raw, m_if = y
-                tr = jax.lax.complex(
-                    iq_raw[:Cl, m_if - self.n_if:m_if]
-                    .astype(jnp.float32),
-                    iq_raw[Cl:, m_if - self.n_if:m_if]
-                    .astype(jnp.float32))
-            elif self.use_kernels and self._chan_pipe is not None:
-                xr, xi = y
-                tr = jax.lax.complex(xr[..., -self.n_if:],
-                                     xi[..., -self.n_if:])
-            else:
-                tr = y[..., -self.n_if:]
+            tr = y[..., -self.n_if:]
             if gate is not None:
                 tr = tr * gate[:, None]
             demod_out, af_out = self._demod_tail_states(tr)
@@ -403,39 +351,16 @@ class ShardedChannelizedPipeline:
             dp, ap = shifted["d"], shifted["a"]
 
             # ---- demod + audio -------------------------------------------
-            if raw:
-                from ..ops.demod_kernel import apply_chunked
-                gvec = gate if gate is not None else None
-                if self._fm_pipe.C == Cl:
-                    audio, _, _ = self._fm_pipe.apply(
-                        gvec, dp, ap, iq_raw, m_if)
-                else:
-                    audio, _, _ = apply_chunked(
-                        self._fm_pipe, gvec, dp, ap, iq_raw, m_if, Cl)
-            else:
-                if self.use_kernels and self._chan_pipe is not None:
-                    xr, xi = y
-                    yc = jax.lax.complex(xr, xi)
-                else:
-                    yc = y
-                if gate is not None:
-                    yc = yc * gate[:, None]
-                audio, _ = r.demod.apply(None, dp, yc)
-                if r.af_resamp is not None:
-                    audio, _ = r.af_resamp.apply(None, ap, audio)
+            yc = y * gate[:, None] if gate is not None else y
+            audio, _ = r.demod.apply(None, dp, yc)
+            if r.af_resamp is not None:
+                audio, _ = r.af_resamp.apply(None, ap, audio)
             demod_new = _last_shard(demod_out, ta)
             af_new = _last_shard(af_out, ta)
             out = jnp.stack([audio, audio], axis=-2).astype(jnp.float32)
         else:
             # ---- generic demod tail (shared per-block sharding rules) ----
-            if self.use_kernels and self._chan_pipe is not None:
-                xr, xi = y
-                yc = jax.lax.complex(xr[..., :self.m_if],
-                                     xi[..., :self.m_if])
-            else:
-                yc = y
-            if gate is not None:
-                yc = yc * gate[:, None]
+            yc = y * gate[:, None] if gate is not None else y
             out, _rds, demod_new = self.tail.apply(carry["demod"], yc,
                                                    self.m_if)
             af_new = {}

@@ -2,7 +2,7 @@
 
 The reference scales past one machine with its TCP server protocol
 (reference: core/src/server.cpp — one host digitizes, clients consume
-compressed IQ over the network).  The TPU-native equivalent
+compressed IQ over the network).  The JAX equivalent
 (BASELINE config 5: 256-channel scanner over ≥2 hosts):
 
   * hosts join one jax.distributed job over **DCN**

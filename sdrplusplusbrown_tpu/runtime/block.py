@@ -1,4 +1,4 @@
-"""Block protocol — the TPU-native replacement for the reference's
+"""Block protocol — the vectorized replacement for the reference's
 thread-per-block runtime (reference: core/src/dsp/{stream,block,processor}.h).
 
 The reference gives every DSP stage its own OS thread and synchronises with

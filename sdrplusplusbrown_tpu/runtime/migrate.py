@@ -5,7 +5,7 @@ history survives tap-count changes (zero-extend / truncate,
 ref: core/src/dsp/filter/fir.h:33-54) and the whole graph edit happens
 under tempStop/tempStart without flushing loop state
 (ref: decoder_modules/radio/src/radio_module.h:655-774) so a bandwidth
-change or demod switch is click-free.  The TPU build's state is an
+change or demod switch is click-free.  This build's state is an
 explicit pytree, so migration is a structural tree merge:
 
 * identical path + shape → carry the old leaf (cast to the new dtype);

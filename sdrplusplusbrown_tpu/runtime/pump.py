@@ -1,6 +1,6 @@
 """Host-side streaming pump: source blocks → jitted pipeline → sinks.
 
-The TPU replacement for the reference's thread-per-block runtime
+The replacement for the reference's thread-per-block runtime
 (reference: core/src/dsp/block.h): a single host loop feeds granularity-
 aligned blocks to one compiled step and hands results to sink callbacks.
 Dispatch-ahead pipelining is free — JAX dispatch is asynchronous, so the
@@ -121,9 +121,7 @@ class StreamPump:
             outs, bstate = bank.apply(bparams, bstate, bb)
             return fstate, bstate, outs, spectra
 
-        self._step_fn = step
-        self._step = None       # built on first call (needs arg shapes
-        # for the row-major boundary layouts, ops/layouts.py)
+        self._step = jax.jit(step)
 
     def run(self, blocks: Iterable[np.ndarray],
             sinks: Optional[Dict[int, Callable]] = None,
@@ -148,11 +146,6 @@ class StreamPump:
 
         for blk in blocks:
             for chunk in rc.push(blk):
-                if self._step is None:
-                    from ..ops.layouts import jit_row_major
-                    self._step = jit_row_major(
-                        self._step_fn, fstate, bparams, bstate,
-                        jnp.asarray(chunk))
                 res = self._step(fstate, bparams, bstate, jnp.asarray(chunk))
                 fstate, bstate = res[0], res[1]
                 if pending is not None:

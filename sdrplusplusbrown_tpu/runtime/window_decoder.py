@@ -17,7 +17,10 @@ stdout lines are the decodes.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import multiprocessing
+import os
 import subprocess
+import sys
 import threading
 from typing import Callable, List, Optional
 
@@ -125,6 +128,12 @@ def run_mshv_decoder(cmd: List[str], audio: np.ndarray,
     return results
 
 
+def _pin_worker_to_cpu():
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
+
+
 class WindowedDecodeRunner:
     """Accumulate samples; dispatch each full window to the decoder pool.
 
@@ -140,7 +149,13 @@ class WindowedDecodeRunner:
         self.decoder = decoder
         self.on_result = on_result
         if use_processes:
-            self.pool = cf.ProcessPoolExecutor(max_workers=max_workers)
+            # Workers pin JAX to the CPU before any task runs: one JAX
+            # process already holds the accelerator, and a second one
+            # that touched it would fail for want of device memory.
+            self.pool = cf.ProcessPoolExecutor(
+                max_workers=max_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_pin_worker_to_cpu)
         else:
             self.pool = cf.ThreadPoolExecutor(max_workers=max_workers)
         self._buf = np.zeros(0, np.float32)

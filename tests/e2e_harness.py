@@ -54,7 +54,6 @@ class AppContext:
         if autostart:
             args.append("--autostart")
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
         self.log_path = os.path.join(root, "app.log")
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(args, stdout=self._log,

@@ -2,11 +2,8 @@
 config 5) so the 2-process workers and the single-process baseline run
 byte-identical programs.
 
-Round 3: the workload is the PRODUCTION architecture — the channelized
-PFB front end + (on TPU) the three-pallas-kernel path
-(parallel/chan_time.py), not the legacy chained per-channel pipeline
-(the repo's own crossover table shows that path ~50× slower per chip at
-C=256, docs/benchmarks.md)."""
+The workload is the PRODUCTION architecture — the channelized PFB front
+end (parallel/chan_time.py), not the chained per-channel pipeline."""
 
 import numpy as np
 

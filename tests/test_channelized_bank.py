@@ -184,8 +184,7 @@ def test_offchannel_alias_rejection(rng):
     the channel passband after the 2:1 decimation, so decim2's stopband
     must start by out_sr − bw/2 (regression: transition out_sr − bw put
     the stopband edge past Nyquist and ±50 kHz-offset carriers aliased
-    in at −20 dB, tripping neighbouring squelches).  Both the chained
-    and the fused (pallas, interpret) paths must gate identically."""
+    in at −20 dB, tripping neighbouring squelches)."""
     radio = Radio(FS, DEMOD_NFM, squelch_enabled=True,
                   pll_mode="normalize")
     g = radio.in_multiple
@@ -198,13 +197,10 @@ def test_offchannel_alias_rejection(rng):
     x = (0.5 * np.exp(1j * (2 * np.pi * offs[17] * n / FS + ph))
          ).astype(np.complex64)
     params = radio.make_params_channelized(offs, squelch_level=-30.0)
-    for force in (False, True):
-        st = radio.init_state_channelized(C)
-        _, st = radio.apply_channelized(params, st, jnp.asarray(x[:T]),
-                                        _force_fused=force or None)
-        audio, _ = radio.apply_channelized(params, st, jnp.asarray(x[T:]),
-                                           _force_fused=force or None)
-        pw = np.mean(np.asarray(audio)[:, 0] ** 2, axis=-1)
-        active = set(np.nonzero(pw > 1e-8)[0].tolist())
-        assert active == {17}, (force, sorted(active))
-        assert pw[17] > 1e-3
+    st = radio.init_state_channelized(C)
+    _, st = radio.apply_channelized(params, st, jnp.asarray(x[:T]))
+    audio, _ = radio.apply_channelized(params, st, jnp.asarray(x[T:]))
+    pw = np.mean(np.asarray(audio)[:, 0] ** 2, axis=-1)
+    active = set(np.nonzero(pw > 1e-8)[0].tolist())
+    assert active == {17}, sorted(active)
+    assert pw[17] > 1e-3

@@ -387,12 +387,12 @@ def test_p25_nid_through_processor(inv):
 def test_dstar_header_roundtrip_and_fec():
     from sdrplusplusbrown_tpu.models import dstar as dsm
     bits = dsm.encode_header(b"\x00\x00\x00", "REPEAT2", "REPEAT1",
-                             "CQCQCQ", "N0CALL", "TPU")
+                             "CQCQCQ", "N0CALL", "JAX")
     h = dsm.decode_header(bits)
     assert h["crc_ok"], h
     assert h["my"] == "N0CALL" and h["ur"] == "CQCQCQ"
     assert h["rpt1"] == "REPEAT1" and h["rpt2"] == "REPEAT2"
-    assert h["suffix"] == "TPU"
+    assert h["suffix"] == "JAX"
     # the rate-1/2 K=3 FEC corrects scattered channel errors
     rx = bits.copy()
     rx[np.asarray([10, 200, 400, 600])] ^= 1

@@ -90,8 +90,8 @@ def test_real_fir_audio(rng):
 
 
 def test_fir_backends_agree(rng):
-    """The toeplitz (MXU matmul) and pallas lowerings must match the
-    conv path for stride-1 real-tap filtering."""
+    """The toeplitz (banded matmul) lowering must match the conv path
+    for stride-1 real-tap filtering."""
     import jax.numpy as jnp
     from sdrplusplusbrown_tpu.ops import fir as fir_mod
     K = 129

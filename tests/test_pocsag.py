@@ -54,7 +54,7 @@ def test_pocsag_rf_loopback(rng):
     slicer → POCSAG decode."""
     fs, baud, dev = 24_000.0, 1200.0, 4500.0
     sps = int(fs / baud)
-    bits = encode_transmission(0x15ABC8, "TPU PAGER OK")
+    bits = encode_transmission(0x15ABC8, "JAX PAGER OK")
     # trailing idle bits: clock recovery eats a few start-up symbols, so
     # without a tail the last codeword would truncate
     bits = np.concatenate([bits, np.tile([1, 0], 32).astype(np.uint8)])
@@ -73,7 +73,7 @@ def test_pocsag_rf_loopback(rng):
     dec = POCSAGDecoder()
     dec.push_bits(hard)
     assert dec.messages, "no POCSAG message decoded from RF loopback"
-    assert dec.messages[0]["text"] == "TPU PAGER OK"
+    assert dec.messages[0]["text"] == "JAX PAGER OK"
     assert dec.messages[0]["address"] == 0x15ABC8
 
 

@@ -295,7 +295,7 @@ def test_fragmented_sds_loopback(rng):
     mcc, mnc, colour = 250, 13, 22
     init = tt.cell_scramb_init(mcc, mnc, colour)
     # TM-SDU: BL-UDATA + CMCE D-SDS-DATA, SSI 0x123456, SDS-TL (type 3)
-    payload = b"HELLO TPU"
+    payload = b"HELLO JAX"
     data_bits = np.unpackbits(np.frombuffer(payload, np.uint8))
     sdu = np.array(
         _bits(0b0010, 4) + _bits(2, 3) + _bits(15, 5) + _bits(1, 2)
